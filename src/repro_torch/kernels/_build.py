@@ -1,0 +1,112 @@
+"""Build and load the port's CUDA kernels.
+
+Every `*/csrc/*.cu` under this package is compiled at first use by
+`nvcc` for Hopper (`sm_90a`) into a shared library with a plain C
+interface, and loaded with `ctypes`. The library is named after the
+hash of its source and lands in `build/kernels/` at the repository
+root, so an edited source is rebuilt and an unchanged one is not.
+
+There is no fallback: a missing `nvcc`, a failed build or a failed
+launch raises. `--use_fast_math` is never passed, because the int8
+codec must divide and round exactly as IEEE float32 does.
+
+Each C entry returns `cudaGetLastError()` right after its launch, and
+`check` turns a non-zero return into an exception.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from concurrent.futures import ThreadPoolExecutor
+from pathlib import Path
+from typing import Dict
+
+import torch
+
+KERNELS_DIR = Path(__file__).resolve().parent
+BUILD_DIR = KERNELS_DIR.parents[2] / "build" / "kernels"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
+
+_LIBS: Dict[str, ctypes.CDLL] = {}
+
+
+def sources() -> Dict[str, Path]:
+    """Every kernel source of the package, by file stem."""
+    return {p.stem: p for p in sorted(KERNELS_DIR.glob("*/csrc/*.cu"))}
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    default = "/usr/local/cuda/bin/nvcc"
+    if os.path.exists(default):
+        return default
+    raise RuntimeError("nvcc not found: the port's CUDA kernels are built "
+                       "from source on the machine with the card")
+
+
+def _library_path(src: Path) -> Path:
+    digest = hashlib.sha256(src.read_bytes()).hexdigest()[:16]
+    return BUILD_DIR / f"{src.stem}-{digest}.so"
+
+
+def _compile(src: Path) -> Path:
+    out = _library_path(src)
+    if out.exists():
+        return out
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)],
+                          capture_output=True, text=True)
+    # ptxas -v reports registers, shared memory and spills per kernel
+    out.with_suffix(".log").write_text(proc.stdout + proc.stderr)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed on {src.name}:\n{proc.stderr}")
+    os.replace(tmp, out)
+    return out
+
+
+def build_all() -> float:
+    """Compile every kernel source, one `nvcc` per source, all at once.
+    Returns the wall seconds the builds took."""
+    t0 = time.perf_counter()
+    srcs = list(sources().values())
+    with ThreadPoolExecutor(max_workers=max(len(srcs), 1)) as pool:
+        for fut in [pool.submit(_compile, s) for s in srcs]:
+            fut.result()
+    return time.perf_counter() - t0
+
+
+def build_log(stem: str) -> str:
+    """What nvcc and ptxas said when they built `stem`."""
+    return _library_path(sources()[stem]).with_suffix(".log").read_text()
+
+
+def library(stem: str) -> ctypes.CDLL:
+    """The loaded library built from `<stem>.cu`, built on first use."""
+    if stem not in _LIBS:
+        lib = ctypes.CDLL(str(_compile(sources()[stem])))
+        err = getattr(lib, f"{stem}_error_string")
+        err.argtypes = [ctypes.c_int]
+        err.restype = ctypes.c_char_p
+        _LIBS[stem] = lib
+    return _LIBS[stem]
+
+
+def check(stem: str, rc: int) -> None:
+    """Raise if a C entry of `stem` returned a CUDA error."""
+    if rc != 0:
+        msg = getattr(library(stem), f"{stem}_error_string")(rc).decode()
+        raise RuntimeError(f"{stem} kernel launch failed: {msg} ({rc})")
+
+
+def stream_ptr(tensor) -> ctypes.c_void_p:
+    """PyTorch's current CUDA stream on the tensor's device."""
+    return ctypes.c_void_p(
+        torch.cuda.current_stream(tensor.device).cuda_stream)

@@ -1,0 +1,262 @@
+"""The port's training hooks against the JAX package on the CPU, at phi3
+SMOKE in fp32: FL rounds of `TorchTrainerHooks(device="cpu")` against a
+single-device JAX reference built from the JAX package's own pieces, the
+JAX package's `FLCloudRunner` driving the port's hooks to the same
+dollars and event trace, and the port's rules (no JAX or `repro`
+import, no silent CPU fallback)."""
+import ast
+import dataclasses
+from pathlib import Path
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax
+import jax.numpy as jnp
+
+from repro import configs as jconfigs
+from repro.common.config import (CloudConfig, ClientProfile, FLRunConfig,
+                                 MarketConfig, ProviderConfig)
+from repro.comms.payload import UpdatePayload as JaxPayload
+from repro.data.synthetic import token_stream as jax_token_stream
+from repro.fl.runner import FLCloudRunner
+from repro.fl.server import JaxTrainerHooks
+from repro.fl.training import MeshTrainerHooks
+from repro.fl.types import TrainerHooks as JaxTrainerHooksProtocol
+from repro.kernels.grad_quant import ops as jgq
+from repro.models import lm as jlm
+from repro_torch.common import bridge
+from repro_torch.data.synthetic import token_stream
+from repro_torch.fl.training import TorchTrainerHooks
+
+REPO = Path(__file__).resolve().parents[1]
+JCFG = jconfigs.get_config("phi3-mini-3.8b", smoke=True)
+NAMES = ("client_0", "client_1")
+# lr below the hooks' default 5e-3: at 5e-3 the first steps move the
+# 0.02-scale embeddings tenfold, and the fp32 rounding differences
+# between two correct implementations grow from round to round until
+# they part ways
+LOCAL_STEPS, BATCH, SEQ, LR = 2, 2, 8, 2e-4
+
+
+def _hooks(quantize, device="cpu", **kw):
+    return TorchTrainerHooks(NAMES, local_steps=LOCAL_STEPS, batch=BATCH,
+                             seq=SEQ, lr=LR, quantize=quantize,
+                             device=device, **kw)
+
+
+_grad_fn = jax.jit(jax.value_and_grad(lambda p, b: jlm.loss_fn(p, JCFG, b)))
+
+
+def _jax_rounds(init, schedule, quantize, seed=0):
+    """The JAX package's round on one device: every slot trains (as the
+    vmap does), non-participants get weight 0 and keep their momentum,
+    participants' deltas optionally go through the int8 codec, and
+    `MeshTrainerHooks._weighted_delta_avg` folds them in."""
+    params = jax.tree.map(jnp.asarray, init)
+    n = len(NAMES)
+    mus = [jax.tree.map(lambda p: jnp.zeros(p.shape, jnp.float32), params)
+           for _ in range(n)]
+    streams = [jax_token_stream(JCFG.vocab_size, BATCH, SEQ,
+                                seed=seed + 17 * i) for i in range(n)]
+    mean_losses = []
+    for live, stale in schedule:
+        batches = [[next(s) for _ in range(LOCAL_STEPS)] for s in streams]
+        mask = np.zeros(n)
+        for c in live:
+            mask[NAMES.index(c)] = JaxTrainerHooks.staleness_discount(
+                stale.get(c, 0))
+        deltas, new_mus, losses = [], [], []
+        for i in range(n):
+            p, m, ls = params, mus[i], []
+            for b in batches[i]:
+                loss, g = _grad_fn(p, {k: jnp.asarray(v) for k, v in b.items()})
+                m = jax.tree.map(lambda mi, gi: 0.9 * mi + gi.astype(jnp.float32),
+                                 m, g)
+                p = jax.tree.map(lambda pi, mi: (pi.astype(jnp.float32)
+                                                 - LR * mi).astype(pi.dtype),
+                                 p, m)
+                ls.append(float(loss))
+            d = jax.tree.map(lambda a, g: a.astype(jnp.float32)
+                             - g.astype(jnp.float32), p, params)
+            if quantize:
+                d = jax.tree.map(lambda x: jgq.dequantize(
+                    *jgq.quantize(x), x.shape, jnp.float32), d)
+            deltas.append(d)
+            new_mus.append(m)
+            losses.append(np.asarray(ls, np.float32))
+        stacked = jax.tree.map(lambda *xs: jnp.stack(xs), *deltas)
+        params = jax.tree.map(lambda x: x[0], MeshTrainerHooks._weighted_delta_avg(
+            stacked, params, jnp.asarray(mask, jnp.float32)))
+        mus = [new_mus[i] if mask[i] > 0 else mus[i] for i in range(n)]
+        mean_losses.append(float(np.mean(
+            [losses[i].mean() for i in range(n) if mask[i] > 0])))
+    return jax.tree.map(np.asarray, params), mean_losses
+
+
+SCHEDULES = {
+    "one_round": [(NAMES, {})],
+    "two_rounds": [(NAMES, {}), (NAMES, {"client_1": 2})],
+    # client_0 sits out round 1: its stream must still advance, and its
+    # momentum must survive into round 2
+    "skip_a_client": [(NAMES, {}), (("client_1",), {}),
+                      (NAMES, {"client_0": 1})],
+}
+
+
+def _play(hooks, schedule):
+    for r, (live, stale) in enumerate(schedule):
+        for c in live:
+            hooks.run_local(c, r)
+        hooks.aggregate(list(live), r, staleness=stale)
+
+
+class TestHooksMatchJaxReference:
+    # fp32 on both sides, summed in other orders: per-round losses agree
+    # to 2e-4 and every parameter to 2% of its leaf's largest update;
+    # dropping the staleness discount, the momentum carry, a
+    # non-participant's batch draw or the codec round trip fails cases
+    # here
+    @pytest.mark.parametrize("quantize", [False, True])
+    @pytest.mark.parametrize("schedule", list(SCHEDULES))
+    def test_rounds(self, schedule, quantize):
+        hooks = _hooks(quantize)
+        init = dict(bridge.flatten_with_paths(
+            bridge.params_to_numpy(hooks.global_params())))
+        _play(hooks, SCHEDULES[schedule])
+        want_params, want_losses = _jax_rounds(
+            bridge.unflatten(init), SCHEDULES[schedule], quantize)
+        got_losses = [rec["mean_loss"] for rec in hooks.losses]
+        np.testing.assert_allclose(got_losses, want_losses, atol=2e-4)
+        got = dict(bridge.flatten_with_paths(
+            bridge.params_to_numpy(hooks.global_params())))
+        for k, want in bridge.flatten_with_paths(want_params):
+            update = np.max(np.abs(want - init[k]))
+            assert update > 0, f"{k} did not move"
+            err = np.max(np.abs(got[k] - want))
+            assert err <= 2e-2 * update, (k, err, update)
+
+    @pytest.mark.parametrize("quantize", [False, True])
+    def test_aggregation_is_exact_on_equal_client_results(self, quantize):
+        """Given the same client results, the port's aggregation (codec
+        round trip, staleness and base weights, weighted average) matches
+        the JAX package's pieces to the last few ulps."""
+        hooks = _hooks(quantize, weights={"client_0": 3.0, "client_1": 1.0})
+        init = dict(bridge.flatten_with_paths(
+            bridge.params_to_numpy(hooks.global_params())))
+        rng = np.random.RandomState(11)
+        results = [{k: (v + rng.randn(*v.shape).astype(np.float32)
+                        * 1e-2 * (1 + i)).astype(np.float32)
+                    for k, v in init.items()} for i in range(len(NAMES))]
+        order = iter(results)
+        hooks._local_train = lambda params, mu, batches: (
+            {k: torch.from_numpy(v) for k, v in next(order).items()}, mu,
+            np.zeros(LOCAL_STEPS, np.float32))
+        stale = {"client_1": 3}
+        _play(hooks, [(NAMES, stale)])
+
+        w = jnp.asarray([3.0, 1.0 / np.sqrt(4.0)], jnp.float32)
+        deltas = []
+        for res in results:
+            d = {k: jnp.asarray(res[k]) - jnp.asarray(v) for k, v in init.items()}
+            if quantize:
+                d = {k: jgq.dequantize(*jgq.quantize(x, use_pallas=True),
+                                       x.shape, jnp.float32, use_pallas=True)
+                     for k, x in d.items()}
+            deltas.append(d)
+        stacked = jax.tree.map(lambda *xs: jnp.stack(xs), *deltas)
+        want = MeshTrainerHooks._weighted_delta_avg(
+            stacked, {k: jnp.asarray(v) for k, v in init.items()}, w)
+        got = dict(bridge.flatten_with_paths(
+            bridge.params_to_numpy(hooks.global_params())))
+        for k in init:
+            np.testing.assert_allclose(got[k], np.asarray(want[k][0]),
+                                       rtol=1e-6, atol=1e-7, err_msg=k)
+
+    def test_token_stream_is_the_jax_one(self):
+        a, b = token_stream(128, 3, 16, seed=5), jax_token_stream(128, 3, 16, seed=5)
+        for _ in range(3):
+            x, y = next(a), next(b)
+            for k in ("tokens", "labels"):
+                np.testing.assert_array_equal(x[k], y[k])
+
+
+# egress priced and uplink modeled, so the runs bill a nonzero comm_cost
+COMM_MARKET = MarketConfig(providers=(
+    ProviderConfig(name="aws", on_demand_rate=1.0, spot_rate_mean=0.4,
+                   spot_rate_sigma=0.0,
+                   update_egress_usd_per_mb=0.001, uplink_mbps=100.0),))
+
+
+class _PayloadOnly(JaxTrainerHooksProtocol):
+    """JAX-side hooks that train nothing and bill the JAX package's own
+    payload of the same parameter tree."""
+
+    def __init__(self, tree):
+        self.tree = tree
+
+    def aggregate(self, participants, round_idx, staleness=None):
+        pass
+
+    def update_payload(self, quantized=False):
+        return JaxPayload.from_tree(self.tree, quantized=quantized)
+
+
+def _run(hooks, quantize, record_to):
+    clients = tuple(ClientProfile(n, mean_epoch_s=60.0 + 30.0 * i, jitter=0.0)
+                    for i, n in enumerate(NAMES))
+    cfg = FLRunConfig(dataset="t", clients=clients, n_epochs=2,
+                      policy="fedcostaware", seed=0, quantize_updates=quantize)
+    cloud = CloudConfig(spot_rate_sigma=0.0, market=COMM_MARKET)
+    return FLCloudRunner(cfg, cloud_cfg=cloud, hooks=hooks,
+                         record_to=record_to).run()
+
+
+@pytest.mark.parametrize("quantize", [False, True])
+def test_cloud_runner_bills_the_port_like_the_jax_package(quantize, tmp_path):
+    hooks = _hooks(quantize)
+    got = _run(hooks, quantize, tmp_path / "port.events.jsonl")
+    stub = _PayloadOnly(jlm.init_params(JCFG, jax.random.PRNGKey(0)))
+    want = _run(stub, quantize, tmp_path / "jax.events.jsonl")
+    assert got.comm_cost > 0.0
+    assert got.total_cost == pytest.approx(want.total_cost, abs=1e-9)
+    assert got.comm_cost == pytest.approx(want.comm_cost, abs=1e-9)
+    assert got.per_round_participants == want.per_round_participants
+    assert (tmp_path / "port.events.jsonl").read_bytes() == \
+        (tmp_path / "jax.events.jsonl").read_bytes()
+    assert len(hooks.losses) == 2 and np.isfinite(hooks.final_loss())
+
+
+def _imported_roots(path):
+    roots = set()
+    for node in ast.walk(ast.parse(path.read_text(), str(path))):
+        if isinstance(node, ast.Import):
+            roots.update(a.name.split(".")[0] for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            roots.add(node.module.split(".")[0])
+    return roots
+
+
+def test_port_imports_neither_jax_nor_the_jax_package():
+    files = sorted((REPO / "src" / "repro_torch").rglob("*.py"))
+    files.append(REPO / "chip_smoke.py")
+    assert len(files) > 14
+    for f in files:
+        bad = _imported_roots(f) & {"jax", "jaxlib", "flax", "repro"}
+        assert not bad, f"{f.relative_to(REPO)} imports {sorted(bad)}"
+
+
+def test_default_device_needs_a_card():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present; the default runs on it")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        TorchTrainerHooks(NAMES)
+
+
+def test_cfg_overrides_the_named_model():
+    cfg = dataclasses.replace(_hooks(False).cfg, num_layers=1)
+    hooks = _hooks(False, cfg=cfg)
+    assert hooks.cfg.num_layers == 1
+    assert hooks.global_params()["blocks"]["00_attn"]["mix"]["wq"].shape[0] == 1

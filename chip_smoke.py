@@ -5,14 +5,18 @@
 
 Run from the root of a checkout. It builds the port's CUDA kernels from
 the sources in the checkout, holds each against its plain PyTorch
-version on the card, drives the port's main path — FL rounds of
-`TorchTrainerHooks` on phi3-mini-3.8b at full width with the depth cut
-to 2 layers, 2 rounds of the fp32 arm then 2 of the int8 arm, in the
-sync engine's call order — and checks that every kernel of that path
-was launched by it. Then it checks a SMOKE-size run on the card against
-the same run on the CPU, times each kernel beside its plain version,
-its bound and the PyTorch library call that computes the same function
-(a yardstick only; the port never calls it), and times one round.
+version on the card, and drives the port's main path — FL rounds of
+`TorchTrainerHooks`, 1 round of the fp32 arm then 1 of the int8 arm, in
+the sync engine's call order — for each of three models at full width
+with the depth cut: phi3-mini-3.8b (2 layers), mamba2-1.3b (2 layers)
+and recurrentgemma-2b (3 layers, one (RG-LRU, RG-LRU, local attention)
+block). Every kernel's launch counter is set to 0 just before each
+model's rounds and read just after, and each count must be what that
+model's path launches. Then it checks a SMOKE-size run of each model on
+the card against the same run on the CPU, and times each kernel beside
+its plain version, its bound and the PyTorch library call that computes
+the same function where there is one (a yardstick only; the port never
+calls it), and one round of each model.
 
 Any failure exits non-zero. Without a CUDA device, or outside a
 checkout, it exits non-zero before printing any result. The last two
@@ -38,8 +42,23 @@ PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 
 MAIN_B, MAIN_S, MAIN_N, MAIN_H = 4, 1024, 32, 96
 CLIENTS = ("client_0", "client_1")
-ROUNDS_PER_ARM = 2
 LOCAL_STEPS = 2
+LR = 5e-3                           # the hooks' default
+
+# model, depth, batch, sequence of each main path, and the leaves that
+# may stay put in its round. mamba2 runs at the context it was trained
+# at (8 chunks of 256); recurrentgemma at twice its 2048 window, so the
+# window masks. mamba2's D (all ones) and recurrentgemma's bf16 wo and
+# wv take steps far below half an ulp of their entries in two steps
+PATHS = (("phi3-mini-3.8b", 2, MAIN_B, MAIN_S, ()),
+         ("mamba2-1.3b", 2, 2, 2048, ("blocks/00_mamba2/mix/D",)),
+         ("recurrentgemma-2b", 3, 1, 4096,
+          ("blocks/02_local_attn/mix/wo", "blocks/02_local_attn/mix/wv")))
+# ssd at mamba2-1.3b's layer: b, s, heads, head dim, groups, state, chunk
+SSD_MAIN = (2, 2048, 64, 64, 1, 128, 256)
+RGLRU_MAIN = (1, 4096, 2560)        # recurrentgemma-2b's layer: B, S, W
+# flash at recurrentgemma-2b's local attention: B, S, N, H, window
+FLASH_RG = (1, 4096, 10, 256, 2048)
 
 
 def _fail(msg):
@@ -79,6 +98,34 @@ def _causal_flops(B, S, N, H, window=None):
     return 4.0 * H * pairs * B * N
 
 
+def _ssd_flops(b, s, h, p, n, chunk):
+    """The chunked form's products, per chunk of Q rows: C B^T and (.)x
+    over the Q(Q+1)/2 causal pairs (j <= i) only, C . state and the
+    state update."""
+    flops = 0.0
+    for t0 in range(0, s, chunk):
+        q = min(chunk, s - t0)
+        flops += 2.0 * (q * (q + 1) // 2) * (n + p) + 4.0 * q * n * p
+    return flops * b * h
+
+
+def _rel_err(got, want):
+    return ((got.float() - want.float()).abs().max()
+            / want.float().abs().max()).item()
+
+
+def _counters():
+    """Every kernel wrapper that counts its launches, by name."""
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.kernels.grad_quant import ops as gq
+    from repro_torch.kernels.rglru import ops as rg
+    from repro_torch.kernels.ssd import ops as sd
+    return {"flash_attention_fwd": fa.flash_attention_fwd,
+            "quantize": gq.quantize, "dequantize": gq.dequantize,
+            "ssd_fwd": sd.ssd_fwd, "rglru_scan_fwd": rg.rglru_scan_fwd,
+            "rglru_scan_reverse": rg.rglru_scan_reverse}
+
+
 def phase_build():
     from repro_torch.kernels import _build
     print(f"[device] {torch.cuda.get_device_name(0)}; torch "
@@ -92,18 +139,32 @@ def phase_build():
                 print(f"[build] {stem}: {line.strip()}")
 
 
+def _randn(gen, *shape, dtype=torch.float32, scale=1.0):
+    return (torch.randn(*shape, generator=gen, device="cuda")
+            * scale).to(dtype)
+
+
+def _ssd_inputs(gen, b, s, h, p, g, n, dtype=torch.float32):
+    return (_randn(gen, b, s, h, p, dtype=dtype, scale=0.5),
+            -_randn(gen, b, s, h).abs() * 0.1,
+            _randn(gen, b, s, g, n, dtype=dtype, scale=0.3),
+            _randn(gen, b, s, g, n, dtype=dtype, scale=0.3))
+
+
+def _rglru_inputs(gen, B, S, W):
+    # recurrentgemma's decays: log a = -8 r softplus(lam), to about -55
+    return (-torch.rand(B, S, W, generator=gen, device="cuda") * 8.0,
+            _randn(gen, B, S, W, scale=0.5))
+
+
 def phase_kernels(gen):
     """Each kernel against its plain version on the card."""
     from repro_torch.kernels.flash_attention import ops as fa
     from repro_torch.kernels.grad_quant import ops as gq
 
-    def randn(*shape, dtype=torch.float32, scale=1.0):
-        return (torch.randn(*shape, generator=gen, device="cuda")
-                * scale).to(dtype)
-
     errs = {}
     shape = (MAIN_B, MAIN_S, MAIN_N, MAIN_H)
-    q, k, v = (randn(*shape, dtype=torch.bfloat16) for _ in range(3))
+    q, k, v = (_randn(gen, *shape, dtype=torch.bfloat16) for _ in range(3))
     out = fa.flash_attention_fwd(q, k, v)
     torch.cuda.synchronize()
     want = fa.flash_attention_plain(q, k, v)
@@ -114,11 +175,32 @@ def phase_kernels(gen):
     print(f"[kernels] flash bf16 {shape} causal: max |err| "
           f"{errs['flash_attention_fwd']:.3e} (tolerance 2e-2)")
 
+    # recurrentgemma's shape, held to the plain version in fp32 on the
+    # same bf16 inputs: the kernel computes in fp32 and rounds its output
+    # to bf16 once, so each output lies within half a bf16 ulp (at most
+    # 2^-8 of itself) of the fp32 result, plus fp32 rounding
+    B, S, N, H, window = FLASH_RG
+    q, k, v = (_randn(gen, B, S, N, H, dtype=torch.bfloat16)
+               for _ in range(3))
+    out = fa.flash_attention_fwd(q, k, v, window=window).float()
+    want = fa.flash_attention_plain(q.float(), k.float(), v.float(),
+                                    window=window)
+    err = (out - want).abs()
+    top = want.abs().max().item()
+    _check(bool((err <= 2.0 ** -8 * want.abs() + 1e-5 * top).all()),
+           f"flash bf16 {FLASH_RG}: max |err| {err.max().item()} against "
+           f"the fp32 plain version")
+    print(f"[kernels] flash bf16 {(B, S, N, H)} window={window}: max |err| "
+          f"{err.max().item():.3e} against the fp32 plain version, "
+          f"{err.max().item() / top:.3e} of max |ref| (tolerance 2^-8 "
+          f"|ref| + 1e-5 max |ref|, one bf16 rounding)")
+
     for (B, S, N, H, window, softcap) in [
             (2, 256, 2, 64, None, None), (1, 512, 2, 32, 128, None),
             (2, 200, 2, 96, None, 30.0), (1, 300, 1, 256, None, None),
-            (2, 77, 4, 16, None, None), (1, 130, 2, 128, 64, 10.0)]:
-        q, k, v = (randn(B, S, N, H) for _ in range(3))
+            (1, 600, 2, 256, 128, None), (2, 77, 4, 16, None, None),
+            (1, 130, 2, 128, 64, 10.0)]:
+        q, k, v = (_randn(gen, B, S, N, H) for _ in range(3))
         out = fa.flash_attention_fwd(q, k, v, window=window, softcap=softcap)
         want = fa.flash_attention_plain(q, k, v, window=window,
                                         softcap=softcap)
@@ -132,13 +214,17 @@ def phase_kernels(gen):
 
     tie = torch.zeros(gq.BLOCK, device="cuda")
     tie[:7] = torch.tensor([127.0, 2.5, 3.5, -2.5, -3.5, 0.5, -0.5])
-    for name, x in [("(2, 3072, 8192) leaf", randn(2, 3072, 8192, scale=1e-3)),
-                    ("ragged 6149", randn(2 * 3072 + 5, scale=1e-3)),
+    for name, x in [("(2, 3072, 8192) leaf",
+                     _randn(gen, 2, 3072, 8192, scale=1e-3)),
+                    ("ragged 6149", _randn(gen, 2 * 3072 + 5, scale=1e-3)),
                     ("half-way ties", tie)]:
         _check_codec(gq, x, name)
     q, _ = gq.quantize(tie)
     _check(q[0, :7].tolist() == [127, 2, 4, -2, -4, 0, 0],
            f"codec ties rounded {q[0, :7].tolist()}")
+
+    _check_ssd(gen, errs)
+    _check_rglru(gen, errs)
     return errs
 
 
@@ -154,6 +240,63 @@ def _check_codec(gq, x, name):
           f"values bit-equal")
 
 
+def _check_ssd(gen, errs):
+    from repro_torch.kernels.ssd import ops as sd
+    b, s, h, p, g, n, chunk = SSD_MAIN
+    x, la, B, C = _ssd_inputs(gen, b, s, h, p, g, n, torch.bfloat16)
+    y = sd.ssd_fwd(x, la, B, C, chunk=chunk)
+    torch.cuda.synchronize()
+    want, _ = sd.ssd_plain(x, la, B, C, chunk=chunk)
+    rel = _rel_err(y, want)
+    _check(y.dtype == torch.bfloat16 and rel <= 2e-2,
+           f"ssd bf16 {SSD_MAIN}: {y.dtype}, relative error {rel}")
+    errs["ssd_fwd"] = (y.float() - want.float()).abs().max().item()
+    print(f"[kernels] ssd bf16 {SSD_MAIN}: max |err| {errs['ssd_fwd']:.3e}, "
+          f"{rel:.3e} of max |ref| (tolerance 2e-2)")
+    # ragged S, chunks of 8, 64 and 256, one and two groups, every state
+    # dim, a head dim that is no multiple of the block's 32 columns
+    for case in [(2, 64, 3, 16, 3, 16, 16), (1, 100, 4, 32, 2, 64, 8),
+                 (2, 300, 4, 64, 1, 128, 64), (1, 520, 2, 24, 1, 32, 256),
+                 (1, 256, 8, 64, 2, 128, 256)]:
+        b, s, h, p, g, n, chunk = case
+        x, la, B, C = _ssd_inputs(gen, b, s, h, p, g, n)
+        rel = _rel_err(sd.ssd_fwd(x, la, B, C, chunk=chunk),
+                       sd.ssd_plain(x, la, B, C, chunk=chunk)[0])
+        _check(rel <= 1e-5, f"ssd fp32 {case}: relative error {rel}")
+        print(f"[kernels] ssd fp32 (b, s, h, p, g, n, chunk)={case}: "
+              f"{rel:.3e} of max |ref| (tolerance 1e-5)")
+
+
+def _check_rglru(gen, errs):
+    from repro_torch.kernels.rglru import ops as rg
+    for shape in (RGLRU_MAIN, (2, 100, 24), (3, 37, 130)):
+        la, u = _rglru_inputs(gen, *shape)
+        h, g = rg.rglru_scan_fwd(la, u), rg.rglru_scan_reverse(la, u)
+        torch.cuda.synchronize()
+        h_ref = rg.rglru_scan_ref(la, u)
+        g_ref = rg.rglru_scan_reverse_ref(la, u)
+        rel_h, rel_g = _rel_err(h, h_ref), _rel_err(g, g_ref)
+        _check(rel_h <= 1e-5 and rel_g <= 1e-5,
+               f"rglru {shape}: relative error forward {rel_h}, reverse "
+               f"{rel_g}")
+        if shape == RGLRU_MAIN:
+            errs["rglru_scan_fwd"] = (h - h_ref).abs().max().item()
+            errs["rglru_scan_reverse"] = (g - g_ref).abs().max().item()
+        print(f"[kernels] rglru fp32 {shape}: forward {rel_h:.3e}, reverse "
+              f"{rel_g:.3e} of max |ref| (tolerance 1e-5)")
+    la, u = _rglru_inputs(gen, 2, 200, 40)
+    la.requires_grad_()
+    u.requires_grad_()
+    gh = _randn(gen, 2, 200, 40)
+    got = torch.autograd.grad(rg.rglru_scan(la, u), (la, u), gh)
+    want = torch.autograd.grad(rg.rglru_scan_ref(la, u), (la, u), gh)
+    rels = [_rel_err(a, b) for a, b in zip(got, want)]
+    _check(max(rels) <= 1e-5, f"rglru backward: relative errors {rels}")
+    print(f"[kernels] rglru backward (2, 200, 40): dlog_a {rels[0]:.3e}, db "
+          f"{rels[1]:.3e} of max |autograd of the plain forward| "
+          f"(tolerance 1e-5)")
+
+
 def _play_rounds(hooks, first_round, n_rounds):
     for r in range(first_round, first_round + n_rounds):
         for c in hooks.clients:
@@ -162,88 +305,124 @@ def _play_rounds(hooks, first_round, n_rounds):
                         staleness={c: 0 for c in hooks.clients})
 
 
-def phase_main_path():
-    """The main path at phi3-mini-3.8b's full width, depth cut to 2."""
+def _expected_launches(cfg, n_leaves):
+    """What one fp32 round and one int8 round of `cfg` launch: a layer's
+    forward kernels once a step, twice in the stacked blocks under remat
+    (the forward and the recompute), the RG-LRU reverse scan once a step
+    in the backward, and the codec on every leaf of every participant's
+    delta on the int8 arm."""
+    steps = 2 * len(CLIENTS) * LOCAL_STEPS
+
+    def layers(*kinds, fwd=True):
+        per_block = sum(cfg.pattern.count(k) for k in kinds) * cfg.n_super
+        tail = sum(cfg.tail_pattern.count(k) for k in kinds)
+        return steps * (per_block * (2 if fwd and cfg.remat else 1) + tail)
+
+    return {"flash_attention_fwd": layers("attn", "local_attn"),
+            "quantize": len(CLIENTS) * n_leaves,
+            "dequantize": len(CLIENTS) * n_leaves,
+            "ssd_fwd": layers("mamba2"),
+            "rglru_scan_fwd": layers("rglru"),
+            "rglru_scan_reverse": layers("rglru", fwd=False)}
+
+
+def phase_main_path(arch, layers, batch, seq, may_stay):
+    """One model's main path at full width, depth cut to `layers`."""
     from repro_torch import configs
     from repro_torch.common.bridge import flatten_with_paths
     from repro_torch.comms.payload import quantized_leaf_bytes
     from repro_torch.fl.training import TorchTrainerHooks
-    from repro_torch.kernels.flash_attention import ops as fa
-    from repro_torch.kernels.grad_quant import ops as gq
 
-    cfg = dataclasses.replace(configs.get_config("phi3-mini-3.8b"),
-                              num_layers=2)
+    cfg = dataclasses.replace(configs.get_config(arch), num_layers=layers)
 
     def make(quantize):
         return TorchTrainerHooks(CLIENTS, cfg=cfg, local_steps=LOCAL_STEPS,
-                                 batch=MAIN_B, seq=MAIN_S, quantize=quantize,
-                                 seed=0, device="cuda")
+                                 batch=batch, seq=seq, lr=LR,
+                                 quantize=quantize, seed=0, device="cuda")
 
+    torch.cuda.reset_peak_memory_stats()
     hooks = make(False)
     init = {k: v.clone() for k, v in flatten_with_paths(hooks.params)}
     n_params = sum(v.numel() for v in init.values())
-    print(f"[main] {cfg.name} d_model={cfg.d_model} heads={cfg.num_heads}x"
-          f"{cfg.resolved_head_dim} d_ff={cfg.d_ff} vocab={cfg.vocab_size} "
-          f"layers={cfg.num_layers} {cfg.param_dtype} remat={cfg.remat}: "
-          f"{n_params} parameters; {len(CLIENTS)} clients, "
-          f"local_steps={LOCAL_STEPS}, batch={MAIN_B}, seq={MAIN_S}")
+    print(f"[main] {cfg.name} d_model={cfg.d_model} pattern={cfg.pattern} "
+          f"layers={cfg.num_layers} vocab={cfg.vocab_size} {cfg.param_dtype} "
+          f"remat={cfg.remat}: {n_params} parameters in {len(init)} leaves; "
+          f"{len(CLIENTS)} clients, local_steps={LOCAL_STEPS}, "
+          f"batch={batch}, seq={seq}")
 
-    fa.flash_attention_fwd.launches = 0
-    gq.quantize.launches = 0
-    gq.dequantize.launches = 0
-    torch.cuda.reset_peak_memory_stats()
-    _play_rounds(hooks, 0, ROUNDS_PER_ARM)
+    counters = _counters()
+    for fn in counters.values():
+        fn.launches = 0
+    _play_rounds(hooks, 0, 1)
     fp32_losses = [r["mean_loss"] for r in hooks.losses]
     fp32_payload = hooks.update_payload(quantized=False)
     del hooks
     hooks = make(True)
-    _play_rounds(hooks, 0, ROUNDS_PER_ARM)
+    _play_rounds(hooks, 0, 1)
     torch.cuda.synchronize()
-    launches = {"flash_attention_fwd": fa.flash_attention_fwd.launches,
-                "quantize": gq.quantize.launches,
-                "dequantize": gq.dequantize.launches}
+    launches = {name: fn.launches for name, fn in counters.items()}
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     int8_losses = [r["mean_loss"] for r in hooks.losses]
-    print(f"[main] fp32 arm mean losses {fp32_losses}; int8 arm mean losses "
-          f"{int8_losses}; peak device memory {peak_gb:.2f} GB")
-    print(f"[main] launches during the main path: {launches}")
+    print(f"[main] {cfg.name}: fp32 arm mean losses {fp32_losses}; int8 arm "
+          f"mean losses {int8_losses}; peak device memory {peak_gb:.2f} GB")
+    print(f"[main] {cfg.name}: launches during its main path: {launches}")
 
     _check(all(math.isfinite(x) for x in fp32_losses + int8_losses),
-           "non-finite loss")
-    # every self-attention layer launches flash twice a step (forward and
-    # the remat recompute); every leaf of every participant's delta goes
-    # through the codec once a round on the int8 arm
-    n_rounds = 2 * ROUNDS_PER_ARM
-    want_flash = n_rounds * len(CLIENTS) * LOCAL_STEPS * cfg.num_layers * 2
-    n_leaves = len(init)
-    want_codec = ROUNDS_PER_ARM * len(CLIENTS) * n_leaves
-    _check(launches["flash_attention_fwd"] == want_flash,
-           f"flash launched {launches['flash_attention_fwd']} times, "
-           f"want {want_flash}")
-    _check(launches["quantize"] == want_codec == launches["dequantize"],
-           f"codec launched {launches}, want {want_codec} each")
+           f"{cfg.name}: non-finite loss")
+    want = _expected_launches(cfg, len(init))
+    _check(launches == want, f"{cfg.name}: launched {launches}, want {want}")
 
+    # every leaf got a gradient, and every leaf moved but those in
+    # `may_stay`; one of those may stay put only if its last step,
+    # LR |momentum|, is under half an ulp of its largest entry: a step
+    # under half an entry's ulp rounds away, and no entry's ulp is
+    # larger than the largest entry's
     final = dict(flatten_with_paths(hooks.params))
-    moved = [k for k in init if not torch.equal(final[k], init[k])]
-    _check(len(moved) == n_leaves, f"leaves that did not move: "
-           f"{sorted(set(init) - set(moved))}")
+    for k in init:
+        m = max(mu[k].abs().max().item() for mu in hooks.mu)
+        _check(0 < m < math.inf, f"{cfg.name}: {k} got no gradient ({m})")
+        if torch.equal(final[k], init[k]):
+            ulp = torch.finfo(init[k].dtype).eps * init[k].abs().max().item()
+            _check(k in may_stay and LR * m < ulp / 2,
+                   f"{cfg.name}: {k} did not move; its step {LR * m:.3e}, "
+                   f"its ulp {ulp:.3e}")
+            print(f"[main] {cfg.name}: {k} did not move: step {LR * m:.3e} "
+                  f"under half its ulp {ulp:.3e}")
     q_payload = hooks.update_payload(quantized=True)
     want_bytes = sum(quantized_leaf_bytes(v.numel()) for v in init.values())
     _check(q_payload.num_bytes == want_bytes,
-           f"int8 payload {q_payload.num_bytes} B, leaf sum {want_bytes} B")
+           f"{cfg.name}: int8 payload {q_payload.num_bytes} B, leaf sum "
+           f"{want_bytes} B")
     _check(q_payload.num_bytes < fp32_payload.num_bytes,
-           "int8 payload not below fp32")
-    print(f"[main] payload per client update: fp32 {fp32_payload.num_bytes} "
-          f"B, int8 {q_payload.num_bytes} B over {q_payload.n_leaves} leaves")
+           f"{cfg.name}: int8 payload not below fp32")
+    print(f"[main] {cfg.name}: payload per client update: fp32 "
+          f"{fp32_payload.num_bytes} B, int8 {q_payload.num_bytes} B over "
+          f"{q_payload.n_leaves} leaves")
+    round_s = hooks.measure_round_s(warmup=1, iters=2)
+    print(f"[times] {cfg.name} measure_round_s (int8 arm, {len(CLIENTS)} "
+          f"clients x {LOCAL_STEPS} steps, batch {batch}, seq {seq}): "
+          f"{round_s:.4f} s")
     deltas = {k: final[k].float() - init[k].float() for k in init}
-    return hooks, launches, deltas
+    return launches, deltas
 
 
-def phase_small_reference():
+# Card-against-CPU bar of one SMOKE round, per leaf: a share of the
+# leaf's update on the CPU plus 2 ulps of its largest entry, and a leaf
+# that moved by more than an ulp on the CPU must move on the card. The
+# share is 2% but for recurrentgemma SMOKE, which is ill-conditioned in
+# fp32 (ROADMAP §3): its zero-initialised biases come out a few percent
+# of their update apart between card and CPU, while on the card the
+# gradients through its kernels agree with those through their plain
+# versions to 1e-4 (tests/test_torch_cuda.py)
+SMOKE_SHARE = {"recurrentgemma-2b": 1e-1}
+
+
+def phase_small_reference(arch):
     """A SMOKE-size run on the card against the same run on the CPU."""
     from repro_torch.common.bridge import flatten_with_paths
     from repro_torch.fl.training import TorchTrainerHooks
 
+    share = SMOKE_SHARE.get(arch, 2e-2)
     for quantize in (False, True):
         runs = []
         for device in ("cuda", "cpu"):
@@ -251,9 +430,9 @@ def phase_small_reference():
             # parameter's fp32 ulp is a sizeable share of its update, and
             # over more rounds the rounding differences between two
             # correct runs grow until they part ways
-            hooks = TorchTrainerHooks(CLIENTS, smoke=True, local_steps=2,
-                                      batch=2, seq=64, quantize=quantize,
-                                      device=device)
+            hooks = TorchTrainerHooks(CLIENTS, model=arch, smoke=True,
+                                      local_steps=2, batch=2, seq=64,
+                                      quantize=quantize, device=device)
             init = {k: v.cpu() for k, v in flatten_with_paths(hooks.params)}
             _play_rounds(hooks, 0, 1)
             runs.append(({k: v.cpu() for k, v in
@@ -261,25 +440,35 @@ def phase_small_reference():
                          [r["mean_loss"] for r in hooks.losses]))
         (gpu, gpu_loss), (cpu, cpu_loss) = runs
         _check(max(abs(a - b) for a, b in zip(gpu_loss, cpu_loss)) <= 2e-4,
-               f"SMOKE losses card {gpu_loss} vs CPU {cpu_loss}")
-        worst, leaf = max((((gpu[k] - cpu[k]).abs().max()
-                            / (cpu[k] - init[k]).abs().max()).item(), k)
-                          for k in cpu)
-        _check(worst <= 2e-2, f"SMOKE params card vs CPU: {leaf} within "
-               f"{worst:.3e} of its largest update")
-        print(f"[reference] SMOKE quantize={quantize}: card vs CPU loss "
-              f"{gpu_loss} vs {cpu_loss}; params within {worst:.3e} of the "
-              f"largest update ({leaf}; tolerance 2e-2)")
+               f"{arch} SMOKE losses card {gpu_loss} vs CPU {cpu_loss}")
+        worst, leaf = 0.0, None
+        for k in cpu:
+            update = (cpu[k] - init[k]).abs().max().item()
+            err = (gpu[k] - cpu[k]).abs().max().item()
+            ulp = torch.finfo(cpu[k].dtype).eps * cpu[k].abs().max().item()
+            bar = share * update + 2 * ulp
+            _check(update <= ulp or not torch.equal(gpu[k], init[k]),
+                   f"{arch} SMOKE: {k} did not move on the card, by "
+                   f"{update:.3e} on the CPU")
+            _check(err <= bar, f"{arch} SMOKE params card vs CPU: {k} off "
+                   f"by {err:.3e}, update {update:.3e}, bar {bar:.3e}")
+            if err > 0 and err / bar >= worst:
+                worst, leaf = err / bar, k
+        print(f"[reference] {arch} SMOKE quantize={quantize}: card vs CPU "
+              f"loss {gpu_loss} vs {cpu_loss}; params within {worst:.3f} of "
+              f"the bar ({leaf}; bar {share:g} of the leaf's update + 2 "
+              f"ulps)")
 
 
-def phase_times(gen, launches, errs, deltas, hooks):
+def phase_times(gen, launches, errs, deltas):
     from repro_torch.kernels.flash_attention import ops as fa
     from repro_torch.kernels.grad_quant import ops as gq
+    from repro_torch.kernels.rglru import ops as rg
+    from repro_torch.kernels.ssd import ops as sd
 
     rows = []
     shape = (MAIN_B, MAIN_S, MAIN_N, MAIN_H)
-    q, k, v = (torch.randn(*shape, generator=gen, device="cuda")
-               .to(torch.bfloat16) for _ in range(3))
+    q, k, v = (_randn(gen, *shape, dtype=torch.bfloat16) for _ in range(3))
     qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
     bound, by = _bound_ms(4 * q.numel() * q.element_size(),
                           _causal_flops(*shape), torch.bfloat16)
@@ -297,7 +486,29 @@ def phase_times(gen, launches, errs, deltas, hooks):
                             .scaled_dot_product_attention(qt, kt, vt,
                                                           is_causal=True))))
 
-    # the codec over one client's whole delta: every leaf once, as a
+    # flash at recurrentgemma's local attention, printed beside the row
+    B, S, N, H, window = FLASH_RG
+    q, k, v = (_randn(gen, B, S, N, H, dtype=torch.bfloat16)
+               for _ in range(3))
+    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+    pos = torch.arange(S, device="cuda")
+    mask = (pos[None, :] <= pos[:, None]) & (pos[None, :] > pos[:, None]
+                                             - window)
+    rg_bound, rg_by = _bound_ms(4 * q.numel() * q.element_size(),
+                                _causal_flops(B, S, N, H, window),
+                                torch.bfloat16)
+    rg_ms = _time_ms(lambda: fa.flash_attention_fwd(q, k, v, window=window))
+    rg_plain = _time_ms(lambda: fa.flash_attention_plain(q, k, v,
+                                                         window=window),
+                        iters=3)
+    rg_lib = _time_ms(lambda: torch.nn.functional
+                      .scaled_dot_product_attention(qt, kt, vt,
+                                                    attn_mask=mask))
+    print(f"[times] flash_attention_fwd at {(B, S, N, H)} window={window}: "
+          f"kernel {rg_ms:.4f} ms, plain {rg_plain:.4f} ms, bound "
+          f"{rg_bound:.4f} ms ({rg_by}), library {rg_lib:.4f} ms")
+
+    # the codec over one phi3 client's whole delta: every leaf once, as a
     # round of the int8 arm does per participant
     leaves = list(deltas.values())
     _check(all(bool(torch.isfinite(d).all()) for d in leaves),
@@ -314,7 +525,7 @@ def phase_times(gen, launches, errs, deltas, hooks):
     _check(errs["quantize"] == 0 and errs["dequantize"] == 0,
            f"codec on the main path's delta: kernel and plain differ "
            f"by {errs['quantize']}, {errs['dequantize']} (must be equal)")
-    print(f"[kernels] codec on the main path's delta ({len(leaves)} leaves, "
+    print(f"[kernels] codec on phi3's main-path delta ({len(leaves)} leaves, "
           f"{sum(d.numel() for d in leaves)} elements): bit-equal")
     n = sum(d.numel() for d in leaves)
     nb = sum(qq.shape[0] for qq, _ in coded)
@@ -342,15 +553,47 @@ def phase_times(gen, launches, errs, deltas, hooks):
             ms=_time_ms(fn, iters=5), plain_ms=_time_ms(plain_fn, iters=5),
             bound_ms=bound, bound_by=by,
             library_ms=_time_ms(lib_fn, iters=5) if lib_fn else None))
+
+    # ssd at mamba2-1.3b's layer: x and y, la, one group of B and C once
+    b, s, h, p, g, n, chunk = SSD_MAIN
+    x, la, Bm, Cm = _ssd_inputs(gen, b, s, h, p, g, n, torch.bfloat16)
+    nbytes = (2 * x.numel() * x.element_size() + la.numel() * 4
+              + 2 * Bm.numel() * Bm.element_size())
+    bound, by = _bound_ms(nbytes, _ssd_flops(b, s, h, p, n, chunk),
+                          torch.bfloat16)
+    rows.append(dict(
+        name="ssd_fwd", route="cuda",
+        source="src/repro_torch/kernels/ssd/csrc/ssd_fwd.cu",
+        replaces="src/repro/kernels/ssd/kernel.py:70",
+        launches=launches["ssd_fwd"], max_abs_err=errs["ssd_fwd"],
+        ms=_time_ms(lambda: sd.ssd_fwd(x, la, Bm, Cm, chunk=chunk)),
+        plain_ms=_time_ms(lambda: sd.ssd_plain(x, la, Bm, Cm, chunk=chunk),
+                          iters=3),
+        bound_ms=bound, bound_by=by, library_ms=None))
+
+    # the RG-LRU scan at recurrentgemma-2b's layer, both modes: read la
+    # and the input, write the output, one fused multiply-add a step
+    la, u = _rglru_inputs(gen, *RGLRU_MAIN)
+    bound, by = _bound_ms(3 * u.numel() * 4, 2.0 * u.numel(), torch.float32)
+    for name, fn, plain_fn in [
+            ("rglru_scan_fwd", rg.rglru_scan_fwd, rg.rglru_scan_ref),
+            ("rglru_scan_reverse", rg.rglru_scan_reverse,
+             rg.rglru_scan_reverse_ref)]:
+        rows.append(dict(
+            name=name, route="cuda",
+            source="src/repro_torch/kernels/rglru/csrc/rglru_scan.cu",
+            replaces="src/repro/kernels/rglru/kernel.py:54",
+            launches=launches[name], max_abs_err=errs[name],
+            ms=_time_ms(lambda: fn(la, u)),
+            plain_ms=_time_ms(lambda: plain_fn(la, u), iters=3),
+            bound_ms=bound, bound_by=by, library_ms=None))
+
     for r in rows:
         print(f"[times] {r['name']}: kernel {r['ms']:.4f} ms, plain "
               f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
               f"({r['bound_by']}), library "
               + (f"{r['library_ms']:.4f} ms" if r["library_ms"] is not None
                  else "none"))
-    round_s = hooks.measure_round_s(warmup=1, iters=2)
-    print(f"[times] measure_round_s (int8 arm, {len(CLIENTS)} clients x "
-          f"{LOCAL_STEPS} steps): {round_s:.4f} s")
     return rows
 
 
@@ -366,9 +609,18 @@ def main():
 
     phase_build()
     errs = phase_kernels(gen)
-    hooks, launches, deltas = phase_main_path()
-    phase_small_reference()
-    rows = phase_times(gen, launches, errs, deltas, hooks)
+    launches = dict.fromkeys(_counters(), 0)
+    deltas = None
+    for arch, layers, batch, seq, may_stay in PATHS:
+        counts, d = phase_main_path(arch, layers, batch, seq, may_stay)
+        for name, c in counts.items():
+            launches[name] += c
+        deltas = deltas or d
+        del d
+    print(f"[main] launches over the three main paths: {launches}")
+    for arch, *_ in PATHS:
+        phase_small_reference(arch)
+    rows = phase_times(gen, launches, errs, deltas)
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",

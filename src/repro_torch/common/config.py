@@ -1,9 +1,10 @@
 """Model configuration for the PyTorch port.
 
-A copy of `ModelConfig` from the JAX package's `common/config.py`, kept
-here because the port imports nothing from that package. Field names
-and derived properties are the same, so a config reads alike in both;
-`activation_dtype` and `param_torch_dtype` give torch dtypes.
+Copies of `SSMConfig`, `RGLRUConfig` and `ModelConfig` from the JAX
+package's `common/config.py`, kept here because the port imports
+nothing from that package. Field names and derived properties are the
+same, so a config reads alike in both; `activation_dtype` and
+`param_torch_dtype` give torch dtypes.
 
 Fields that only steer the JAX package's TPU path are left out:
 `use_pallas` (the port always runs its kernels on the card),
@@ -29,6 +30,28 @@ RGLRU = "rglru"          # Griffin recurrent block (RG-LRU)
 SUPPORTED_KINDS = (ATTN, LOCAL_ATTN, CROSS_ATTN, MAMBA2, RGLRU)
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+@dataclasses.dataclass(frozen=True)
+class SSMConfig:
+    """Mamba2 / SSD hyper-parameters."""
+    d_state: int = 128
+    head_dim: int = 64
+    expand: int = 2
+    conv_width: int = 4
+    n_groups: int = 1
+    chunk_size: int = 256
+    dt_min: float = 0.001
+    dt_max: float = 0.1
+    a_init_range: Tuple[float, float] = (1.0, 16.0)
+
+
+@dataclasses.dataclass(frozen=True)
+class RGLRUConfig:
+    """Griffin / RecurrentGemma recurrent-block hyper-parameters."""
+    lru_width: Optional[int] = None   # defaults to d_model
+    conv_width: int = 4
+    c_constant: float = 8.0           # the fixed `c` exponent scale
 
 
 def torch_dtype(name: str) -> torch.dtype:
@@ -63,6 +86,8 @@ class ModelConfig:
     # MoE sub-config; the port does not run MoE yet, and `models.lm`
     # raises NotImplementedError when one is set
     moe: Optional[Any] = None
+    ssm: Optional[SSMConfig] = None
+    rglru: Optional[RGLRUConfig] = None
     # misc
     norm_eps: float = 1e-5
     tie_embeddings: bool = False

@@ -3,7 +3,7 @@
 Each module exposes FULL (the published config) and SMOKE (a reduced
 same-family config that trains on the CPU in the tests). Only the
 architectures the port runs are listed; the others follow with the
-model families they need (ROADMAP §1, queued items 4 and 5).
+model families they need (ROADMAP §1, queued item 5).
 """
 from __future__ import annotations
 
@@ -14,6 +14,8 @@ from repro_torch.common.config import ModelConfig
 
 _MODULES = {
     "phi3-mini-3.8b": "phi3_mini_3p8b",
+    "mamba2-1.3b": "mamba2_1p3b",
+    "recurrentgemma-2b": "recurrentgemma_2b",
 }
 
 ARCH_IDS: List[str] = list(_MODULES)

@@ -1,0 +1,121 @@
+"""Public SSD op on model-layout tensors: x (b,s,h,p), log decay (b,s,h),
+and B and C per group, (b,s,g,n), head h reading group h // (h_total//g).
+
+Differentiable through `torch.autograd.Function`: the forward is
+`ssd_fwd`, which launches the kernel in `csrc/ssd_fwd.cu` on a CUDA
+tensor (adding one to its `launches` count) and runs the plain version in
+`ref.py` on a CPU tensor. The backward recomputes the scan with the plain
+version under autograd, which is the gradient the JAX package takes
+(`jax.grad` of `ssd_reference`; its Pallas kernel has none). B and C are
+expanded to heads only inside that recompute, so autograd's sum over
+the heads of a group gives their gradients. A backward kernel is queued
+in ROADMAP.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels import _build
+from repro_torch.kernels.ssd.ref import ssd_reference
+
+STATE_DIMS = (16, 32, 64, 128)
+MAX_CHUNK = 256
+_STEM = "ssd_fwd"
+
+
+def _heads(t, h):
+    """(b,s,g,n) per-group tensor -> (b,s,h,n), each group repeated for its
+    h // g heads in order, as `jnp.repeat` does in `mamba2_mix`."""
+    return torch.repeat_interleave(t, h // t.shape[2], dim=2)
+
+
+def ssd_plain(xbar, log_a, Bm, Cm, *, chunk=256):
+    """The plain version: (y (b,s,h,p) in xbar's dtype, final state)."""
+    h = xbar.shape[2]
+    return ssd_reference(xbar, log_a, _heads(Bm, h), _heads(Cm, h), chunk)
+
+
+def _lib():
+    lib = _build.library(_STEM)
+    fn = lib.ssd_fwd
+    if fn.argtypes is None:
+        ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        fn.argtypes = [ptr] * 5 + [i32] * 8 + [i64] * 15 + [ptr]
+        fn.restype = ctypes.c_int
+    return lib
+
+
+def _check(xbar, log_a, Bm, Cm, chunk):
+    b, s, h, p = xbar.shape
+    g, n = Bm.shape[2], Bm.shape[3]
+    if any(t.device != xbar.device for t in (log_a, Bm, Cm)):
+        raise ValueError("ssd: all inputs must lie on one CUDA device")
+    if xbar.dtype not in (torch.float32, torch.bfloat16) or not (
+            Bm.dtype == Cm.dtype == xbar.dtype):
+        raise ValueError(f"ssd: x, B, C of one dtype, fp32 or bf16; got "
+                         f"{xbar.dtype} {Bm.dtype} {Cm.dtype}")
+    if log_a.dtype != torch.float32:
+        raise ValueError(f"ssd: log decay must be fp32, got {log_a.dtype}")
+    if (tuple(log_a.shape) != (b, s, h) or tuple(Cm.shape) != (b, s, g, n)
+            or Bm.shape[:2] != (b, s) or g < 1 or h % g):
+        raise ValueError(f"ssd: shapes x {tuple(xbar.shape)}, log_a "
+                         f"{tuple(log_a.shape)}, B {tuple(Bm.shape)}, C "
+                         f"{tuple(Cm.shape)}")
+    if n not in STATE_DIMS:
+        raise ValueError(f"ssd: state dim {n} not in {STATE_DIMS}")
+    if not 1 <= chunk <= MAX_CHUNK:
+        raise ValueError(f"ssd: chunk {chunk} not in [1, {MAX_CHUNK}]")
+    if b * h > 65535:
+        raise ValueError(f"ssd: b*h={b * h} exceeds 65535")
+
+
+def ssd_fwd(xbar, log_a, Bm, Cm, *, chunk=256):
+    """Forward only: y (b,s,h,p) in xbar's dtype."""
+    if xbar.device.type == "cpu":
+        return ssd_plain(xbar, log_a, Bm, Cm, chunk=chunk)[0]
+    if xbar.device.type != "cuda":
+        raise ValueError(f"ssd: unsupported device {xbar.device}")
+    _check(xbar, log_a, Bm, Cm, chunk)
+    b, s, h, p = xbar.shape
+    g, n = Bm.shape[2], Bm.shape[3]
+    xbar, Bm, Cm = (t if t.stride(3) == 1 else t.contiguous()
+                    for t in (xbar, Bm, Cm))
+    y = torch.empty((b, s, h, p), dtype=xbar.dtype, device=xbar.device)
+    rc = _lib().ssd_fwd(
+        xbar.data_ptr(), log_a.data_ptr(), Bm.data_ptr(), Cm.data_ptr(),
+        y.data_ptr(), int(xbar.dtype == torch.bfloat16), b, s, h, p, g, n,
+        min(chunk, s), *xbar.stride()[:3], *log_a.stride(),
+        *Bm.stride()[:3], *Cm.stride()[:3], *y.stride()[:3],
+        _build.stream_ptr(xbar))
+    _build.check(_STEM, rc)
+    ssd_fwd.launches += 1
+    return y
+
+
+ssd_fwd.launches = 0
+
+
+class _SSD(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, xbar, log_a, Bm, Cm, chunk):
+        ctx.save_for_backward(xbar, log_a, Bm, Cm)
+        ctx.chunk = chunk
+        return ssd_fwd(xbar, log_a, Bm, Cm, chunk=chunk)
+
+    @staticmethod
+    def backward(ctx, gy):
+        saved = ctx.saved_tensors
+        with torch.enable_grad():
+            ins = [t.detach().requires_grad_() for t in saved]
+            y, _ = ssd_plain(*ins, chunk=ctx.chunk)
+            grads = torch.autograd.grad(y, ins, gy)
+        return (*grads, None)
+
+
+def ssd(xbar, log_a, Bm, Cm, *, chunk=256):
+    """xbar (b,s,h,p), log_a (b,s,h), Bm and Cm (b,s,g,n) with g dividing
+    h -> (y (b,s,h,p), None), the calling convention of the JAX
+    package's `ssd/ops.py::ssd` (the final state is not returned)."""
+    return _SSD.apply(xbar, log_a, Bm, Cm, chunk), None

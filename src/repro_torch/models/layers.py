@@ -49,6 +49,9 @@ class ParamSpec:
                 max(fan_in, 1))
         elif self.init == "embed":
             x = torch.randn(self.shape, generator=gen) * 0.02
+        elif callable(self.init):
+            # a schema's own initializer: (gen, shape) -> fp32 CPU tensor
+            x = self.init(gen, self.shape)
         else:
             raise ValueError(self.init)
         return x.to(dtype).to(device)

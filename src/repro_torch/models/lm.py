@@ -1,12 +1,12 @@
 """Decoder LM of the port, for the attention patterns (`attn`,
-`local_attn`).
+`local_attn`) and the state-space ones (`mamba2`, `rglru`).
 
 Counterpart of the JAX package's `models/lm.py`: the same parameter
 tree, with the stacked leading layer dim of `blocks/*`, which the forward
 indexes in a Python loop where the JAX package scans. `cfg.remat`
 recomputes each block in the backward
 (`torch.utils.checkpoint.checkpoint`, non-reentrant), as `jax.checkpoint`
-with `nothing_saveable` does. The other layer kinds and MoE raise
+with `nothing_saveable` does. Cross attention and MoE raise
 NotImplementedError naming their ROADMAP item.
 
 Public API:
@@ -22,16 +22,15 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.common import config as C
 from repro_torch.common.bridge import flatten_with_paths
 from repro_torch.models import layers as L
+from repro_torch.models import ssm as S
 
 _NOT_PORTED = {
-    C.MAMBA2: "ROADMAP §1, queued item 4 (SSM families)",
-    C.RGLRU: "ROADMAP §1, queued item 4 (SSM families)",
     C.CROSS_ATTN: "ROADMAP §1, queued item 5 (other LM families)",
 }
 
 
 def _check_supported(cfg):
-    for kind in set(cfg.pattern):
+    for kind in set(cfg.pattern + cfg.tail_pattern):
         if kind in _NOT_PORTED:
             raise NotImplementedError(
                 f"layer kind {kind!r} is not ported yet: {_NOT_PORTED[kind]}")
@@ -45,8 +44,13 @@ def _check_supported(cfg):
 # Schemas.
 # ---------------------------------------------------------------------------
 def _sublayer_schema(cfg, kind):
-    sub = {"norm1": L.rms_norm_schema(cfg.d_model),
-           "mix": L.attention_schema(cfg)}
+    sub = {"norm1": L.rms_norm_schema(cfg.d_model)}
+    if kind == C.MAMBA2:
+        sub["mix"] = S.mamba2_schema(cfg)
+    elif kind == C.RGLRU:
+        sub["mix"] = S.rglru_schema(cfg)
+    else:
+        sub["mix"] = L.attention_schema(cfg)
     if _has_mlp(cfg):
         sub["norm2"] = L.rms_norm_schema(cfg.d_model)
         sub["mlp"] = L.mlp_schema(cfg)
@@ -98,7 +102,12 @@ def init_params(cfg, seed: int = 0, device: str = "cuda"):
 # ---------------------------------------------------------------------------
 def _apply_sublayer(kind, p, x, cfg):
     h = L.rms_norm(x, p["norm1"], cfg.norm_eps)
-    x = x + L.attention(p["mix"], h, cfg, kind=kind)
+    if kind == C.MAMBA2:
+        x = x + S.mamba2_mix(p["mix"], h, cfg)
+    elif kind == C.RGLRU:
+        x = x + S.rglru_mix(p["mix"], h, cfg)
+    else:
+        x = x + L.attention(p["mix"], h, cfg, kind=kind)
     if _has_mlp(cfg):
         h = L.rms_norm(x, p["norm2"], cfg.norm_eps)
         x = x + L.mlp(p["mlp"], h, cfg)

@@ -10,6 +10,8 @@ torch = pytest.importorskip("torch")
 
 from repro_torch.kernels.flash_attention import ops as fa
 from repro_torch.kernels.grad_quant import ops as gq
+from repro_torch.kernels.rglru import ops as rg
+from repro_torch.kernels.ssd import ops as sd
 
 pytestmark = pytest.mark.cuda
 
@@ -36,6 +38,7 @@ FLASH_CASES = [
     (1, 512, 2, 32, torch.float32, 128, None, 2e-5),
     (2, 200, 2, 96, torch.float32, None, 30.0, 2e-5),
     (1, 300, 1, 256, torch.float32, None, None, 2e-5),
+    (1, 600, 2, 256, torch.float32, 128, None, 2e-5),
     (2, 77, 4, 16, torch.float32, None, None, 2e-5),
     (1, 130, 2, 128, torch.float32, 64, 10.0, 2e-5),
     (2, 1024, 4, 96, torch.bfloat16, None, None, 2e-2),
@@ -54,6 +57,21 @@ def test_flash_kernel_matches_plain(gen, B, S, N, H, dtype, window,
     want = fa.flash_attention_plain(q, k, v, window=window, softcap=softcap)
     assert out.dtype == dtype and out.shape == want.shape
     torch.testing.assert_close(out.float(), want.float(), atol=tol, rtol=tol)
+
+
+def test_flash_bf16_rounds_once_at_recurrentgemma_head_dim(gen):
+    # H=256 with a window, as recurrentgemma's local attention runs it:
+    # the kernel computes in fp32 and rounds each output to bf16 once, so
+    # it lies within half a bf16 ulp (at most 2^-8 of itself) of the fp32
+    # plain version on the same inputs, plus fp32 rounding
+    q, k, v = (_randn(gen, 1, 1024, 2, 256, dtype=torch.bfloat16)
+               for _ in range(3))
+    out = fa.flash_attention_fwd(q, k, v, window=512).float()
+    want = fa.flash_attention_plain(q.float(), k.float(), v.float(),
+                                    window=512)
+    err = (out - want).abs()
+    assert bool((err <= 2.0 ** -8 * want.abs()
+                 + 1e-5 * want.abs().max()).all()), err.max().item()
 
 
 def test_flash_kernel_reads_strided_inputs(gen):
@@ -99,3 +117,175 @@ def test_codec_rounds_half_to_even(gen):
     q, s = gq.quantize(x)
     assert s.item() == 1.0
     assert q[0, :7].tolist() == [127, 2, 4, -2, -4, 0, 0]
+
+
+def _rel_err(got, want):
+    """max |got - want| over max |want|, in fp32."""
+    return ((got.float() - want.float()).abs().max()
+            / want.float().abs().max()).item()
+
+
+def _ssd_inputs(gen, b, s, h, p, g, n, dtype=torch.float32):
+    x = _randn(gen, b, s, h, p, dtype=dtype, scale=0.5)
+    la = -_randn(gen, b, s, h).abs() * 0.1
+    B = _randn(gen, b, s, g, n, dtype=dtype, scale=0.3)
+    C = _randn(gen, b, s, g, n, dtype=dtype, scale=0.3)
+    return x, la, B, C
+
+
+# (b, s, h, p, g, n, chunk): ragged S, chunks of 8, 64 and 256, one and
+# two groups, every state dim, a head dim that is not a multiple of the
+# block's 32 columns; 1e-5 relative, the JAX package's own ssd bar
+SSD_CASES = [
+    (2, 64, 3, 16, 3, 16, 16),
+    (1, 100, 4, 32, 2, 64, 8),
+    (2, 300, 4, 64, 1, 128, 64),
+    (1, 520, 2, 24, 1, 32, 256),
+    (1, 256, 8, 64, 2, 128, 256),
+]
+
+
+@pytest.mark.parametrize("b,s,h,p,g,n,chunk", SSD_CASES)
+def test_ssd_kernel_matches_plain(gen, b, s, h, p, g, n, chunk):
+    x, la, B, C = _ssd_inputs(gen, b, s, h, p, g, n)
+    before = sd.ssd_fwd.launches
+    y = sd.ssd_fwd(x, la, B, C, chunk=chunk)
+    torch.cuda.synchronize()
+    assert sd.ssd_fwd.launches == before + 1
+    want, _ = sd.ssd_plain(x, la, B, C, chunk=chunk)
+    assert y.dtype == x.dtype and y.shape == want.shape
+    assert _rel_err(y, want) < 1e-5
+
+
+def test_ssd_kernel_bf16_at_the_main_shape(gen):
+    """mamba2-1.3b's layer: b=2, s=2048, 64 heads x 64, one group of 128;
+    bf16 inputs and output, 2e-2 of the largest output."""
+    x, la, B, C = _ssd_inputs(gen, 2, 2048, 64, 64, 1, 128, torch.bfloat16)
+    y = sd.ssd_fwd(x, la, B, C, chunk=256)
+    want, _ = sd.ssd_plain(x, la, B, C, chunk=256)
+    assert y.dtype == torch.bfloat16
+    assert _rel_err(y, want) < 2e-2
+
+
+def test_ssd_kernel_reads_strided_and_expanded_inputs(gen):
+    """x, B and C as views of one packed tensor, as `mamba2_mix` slices
+    them out of the convolution's output, and B as an expanded view."""
+    b, s, h, p, n = 2, 96, 4, 16, 16
+    packed = _randn(gen, b, s, h * p + 2 * n, scale=0.4)
+    x = packed[..., :h * p].reshape(b, s, h, p)
+    B = packed[..., h * p:h * p + n].reshape(b, s, 1, n)
+    C = packed[..., h * p + n:].reshape(b, s, 1, n)
+    la = -_randn(gen, b, s, h).abs() * 0.1
+    y = sd.ssd_fwd(x, la, B, C, chunk=32)
+    want, _ = sd.ssd_plain(x.contiguous(), la, B.contiguous(),
+                           C.contiguous(), chunk=32)
+    assert _rel_err(y, want) < 1e-5
+    B2 = _randn(gen, b, s, 1, n).expand(b, s, 2, n)
+    y2 = sd.ssd_fwd(x, la, B2, C.expand(b, s, 2, n), chunk=32)
+    want2, _ = sd.ssd_plain(x, la, B2.contiguous(),
+                            C.expand(b, s, 2, n).contiguous(), chunk=32)
+    assert _rel_err(y2, want2) < 1e-5
+
+
+def test_ssd_gradients_flow_through_the_recompute(gen):
+    ins = [t.requires_grad_() for t in _ssd_inputs(gen, 1, 64, 4, 16, 2, 16)]
+    gy = _randn(gen, 1, 64, 4, 16)
+    y, _ = sd.ssd(*ins, chunk=16)
+    got = torch.autograd.grad(y, ins, gy)
+    want = torch.autograd.grad(sd.ssd_plain(*ins, chunk=16)[0], ins, gy)
+    for a, b in zip(got, want):
+        assert _rel_err(a, b) < 1e-5
+
+
+def test_ssd_rejects_an_unsupported_state_dim(gen):
+    x, la, B, C = _ssd_inputs(gen, 1, 16, 2, 16, 1, 48)
+    with pytest.raises(ValueError, match="state dim"):
+        sd.ssd_fwd(x, la, B, C, chunk=8)
+
+
+def _rglru_inputs(gen, B, S, W):
+    # recurrentgemma's decays: log a = -8 r softplus(lam), down to about -55
+    la = -torch.rand(B, S, W, generator=gen, device="cuda") * 8.0
+    return la, _randn(gen, B, S, W, scale=0.5)
+
+
+# (B, S, W): recurrentgemma's layer at full width, ragged S and W, S
+# shorter than the kernel's 64 chunks; 1e-5 relative
+RGLRU_CASES = [(1, 4096, 2560), (2, 100, 24), (3, 37, 130), (1, 1000, 16)]
+
+
+@pytest.mark.parametrize("B,S,W", RGLRU_CASES)
+def test_rglru_kernel_matches_plain_both_ways(gen, B, S, W):
+    la, u = _rglru_inputs(gen, B, S, W)
+    f0, r0 = rg.rglru_scan_fwd.launches, rg.rglru_scan_reverse.launches
+    h = rg.rglru_scan_fwd(la, u)
+    g = rg.rglru_scan_reverse(la, u)
+    torch.cuda.synchronize()
+    assert (rg.rglru_scan_fwd.launches, rg.rglru_scan_reverse.launches) \
+        == (f0 + 1, r0 + 1)
+    assert _rel_err(h, rg.rglru_scan_ref(la, u)) < 1e-5
+    assert _rel_err(g, rg.rglru_scan_reverse_ref(la, u)) < 1e-5
+
+
+def test_rglru_kernel_reads_strided_inputs(gen):
+    packed = _randn(gen, 2, 300, 2 * 48)
+    la, u = -packed[..., :48].abs(), packed[..., 48:]
+    torch.testing.assert_close(
+        rg.rglru_scan_fwd(la, u),
+        rg.rglru_scan_ref(la.contiguous(), u.contiguous()),
+        atol=1e-5, rtol=1e-5)
+    lat = -_randn(gen, 2, 48, 300).abs().transpose(1, 2)
+    assert _rel_err(rg.rglru_scan_reverse(lat, u),
+                    rg.rglru_scan_reverse_ref(lat.contiguous(), u)) < 1e-5
+
+
+def test_rglru_backward_runs_the_reverse_kernel(gen):
+    la, u = _rglru_inputs(gen, 2, 200, 40)
+    la.requires_grad_()
+    u.requires_grad_()
+    gh = _randn(gen, 2, 200, 40)
+    r0 = rg.rglru_scan_reverse.launches
+    got = torch.autograd.grad(rg.rglru_scan(la, u), (la, u), gh)
+    assert rg.rglru_scan_reverse.launches == r0 + 1
+    want = torch.autograd.grad(rg.rglru_scan_ref(la, u), (la, u), gh)
+    for a, b in zip(got, want):
+        assert _rel_err(a, b) < 1e-5
+
+
+@pytest.mark.parametrize("arch", ["mamba2-1.3b", "recurrentgemma-2b"])
+def test_smoke_model_gradients_match_the_plain_versions(gen, arch,
+                                                        monkeypatch):
+    """A SMOKE model's loss and gradients on the card through the kernels
+    against the same on the card with every kernel's plain version
+    swapped in: what the kernels change on the training path, apart from
+    the card's other sums. recurrentgemma's fp32 gradients lie about
+    2e-3 of a leaf's largest entry from float64 on either device, so
+    this, not card against CPU, is where the kernels are held to 1e-4."""
+    from repro_torch import configs
+    from repro_torch.common.bridge import flatten_with_paths, unflatten
+    from repro_torch.models import lm
+
+    cfg = configs.get_config(arch, smoke=True)
+    params = dict(flatten_with_paths(lm.init_params(cfg, 0, "cuda")))
+    toks = torch.randint(0, cfg.vocab_size, (2, 65), generator=gen,
+                         device="cuda")
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+
+    def loss_and_grads():
+        leaves = {k: v.detach().clone().requires_grad_() for k, v in
+                  params.items()}
+        loss = lm.loss_fn(unflatten(leaves), cfg, batch)
+        return loss.item(), torch.autograd.grad(loss, list(leaves.values()))
+
+    before = (sd.ssd_fwd.launches, rg.rglru_scan_fwd.launches)
+    loss, grads = loss_and_grads()
+    assert (sd.ssd_fwd.launches, rg.rglru_scan_fwd.launches) != before
+    monkeypatch.setattr(sd, "ssd_fwd", lambda x, la, B, C, *, chunk:
+                        sd.ssd_plain(x, la, B, C, chunk=chunk)[0])
+    monkeypatch.setattr(rg, "rglru_scan_fwd", rg.rglru_scan_ref)
+    monkeypatch.setattr(rg, "rglru_scan_reverse", rg.rglru_scan_reverse_ref)
+    monkeypatch.setattr(fa, "flash_attention_fwd", fa.flash_attention_plain)
+    plain_loss, plain_grads = loss_and_grads()
+    assert loss == pytest.approx(plain_loss, rel=1e-6)
+    for k, a, b in zip(params, grads, plain_grads):
+        assert (a - b).abs().max() <= 1e-4 * b.abs().max(), k

@@ -1,7 +1,11 @@
 """The port's kernel modules against the JAX package's, on the CPU: the
 flash-attention op (plain version, gradients through its recompute
 backward) against the Pallas kernel in interpret mode and its reference,
-and the int8 codec bit for bit against both JAX paths.
+the int8 codec bit for bit against both JAX paths, the SSD scan against
+the Pallas kernel in interpret mode, `ssd_reference` and a sequential
+recurrence (gradients against `jax.vjp` of `ssd_reference`), and the
+RG-LRU scan against the Pallas kernel and `rglru_scan_ref` (its
+reverse-mode backward against `jax.vjp` of `rglru_scan_ref`).
 
 On the CPU each wrapper runs its plain version; the CUDA kernels are
 held to the same plain versions on the card (`chip_smoke.py` and
@@ -18,9 +22,15 @@ import jax.numpy as jnp
 from repro.kernels.flash_attention.ops import flash_attention as jax_flash
 from repro.kernels.flash_attention.ref import reference_attention as jax_ref
 from repro.kernels.grad_quant import ops as jgq
+from repro.kernels.rglru.ops import rglru_scan as jax_rglru
+from repro.kernels.rglru.ref import rglru_scan_ref as jax_rglru_ref
+from repro.kernels.ssd.ops import ssd as jax_ssd
+from repro.models.ssm import ssd_reference as jax_ssd_ref
 from repro_torch.common.bridge import _to_numpy, _to_tensor
 from repro_torch.kernels.flash_attention import ops as fa
 from repro_torch.kernels.grad_quant import ops as gq
+from repro_torch.kernels.rglru import ops as rg
+from repro_torch.kernels.ssd import ops as sd
 
 
 def _fold(x):
@@ -148,3 +158,197 @@ class TestGradQuant:
         want = jgq.dequantize(jq, js, (4, 3333), jnp.bfloat16)
         np.testing.assert_array_equal(_to_numpy(got).view(np.uint16),
                                       np.asarray(want).view(np.uint16))
+
+
+def _rel(got, want):
+    """max |got - want| over max |want|."""
+    want = np.asarray(want, np.float64)
+    return np.max(np.abs(np.asarray(got, np.float64) - want)) / (
+        np.max(np.abs(want)) + 1e-30)
+
+
+def _ssd_arrays(rng, b, s, h, p, n, g=None, la_scale=0.1):
+    """x, log decay and per-group B, C (g groups; g = h: one per head)."""
+    g = g or h
+    return (rng.randn(b, s, h, p).astype(np.float32) * 0.5,
+            (-np.abs(rng.randn(b, s, h)) * la_scale).astype(np.float32),
+            rng.randn(b, s, g, n).astype(np.float32) * 0.3,
+            rng.randn(b, s, g, n).astype(np.float32) * 0.3)
+
+
+def _heads(t, h):
+    return np.repeat(t, h // t.shape[2], axis=2)
+
+
+def _port_ssd(x, la, B, C, chunk):
+    y, state = sd.ssd(*(torch.from_numpy(a) for a in (x, la, B, C)),
+                      chunk=chunk)
+    assert state is None
+    return y.numpy()
+
+
+def _sequential_ssd(x, la, B, C):
+    """Independent O(S) oracle in float64: h_t = a_t h_{t-1} + B_t x_t,
+    y_t = C_t . h_t (B, C per head)."""
+    b, s, h, p = x.shape
+    st = np.zeros((b, h, p, B.shape[-1]))
+    ys = []
+    for t in range(s):
+        st = (np.exp(la[:, t].astype(np.float64))[..., None, None] * st
+              + np.einsum("bhp,bhn->bhpn", x[:, t], B[:, t]))
+        ys.append(np.einsum("bhpn,bhn->bhp", st, C[:, t]))
+    return np.stack(ys, axis=1)
+
+
+class TestSSD:
+    # the cases of tests/test_kernels.py, at the reference's 1e-5 bar
+    # relative to the largest output
+    @pytest.mark.parametrize("s,p,n,chunk", [
+        (64, 16, 16, 16), (128, 32, 64, 32), (256, 64, 128, 64)])
+    def test_matches_pallas_and_reference(self, s, p, n, chunk):
+        rng = np.random.RandomState(s + p)
+        x, la, B, C = _ssd_arrays(rng, 2, s, 3, p, n)
+        got = _port_ssd(x, la, B, C, chunk)
+        pallas, _ = jax_ssd(x, la, B, C, chunk=chunk, interpret=True)
+        ref, _ = jax_ssd_ref(x, la, B, C, chunk=chunk)
+        for want in (pallas, ref):
+            assert _rel(got, want) < 1e-5
+
+    def test_two_groups_read_per_group(self):
+        """B and C per group (4 heads, 2 groups) against the JAX paths fed
+        the per-head repeat that `mamba2_mix` makes."""
+        rng = np.random.RandomState(7)
+        x, la, B, C = _ssd_arrays(rng, 2, 64, 4, 16, 16, g=2)
+        got = _port_ssd(x, la, B, C, 16)
+        Bh, Ch = _heads(B, 4), _heads(C, 4)
+        pallas, _ = jax_ssd(x, la, Bh, Ch, chunk=16, interpret=True)
+        ref, _ = jax_ssd_ref(x, la, Bh, Ch, chunk=16)
+        for want in (pallas, ref):
+            assert _rel(got, want) < 1e-5
+
+    def test_ragged_sequence(self):
+        """S = 100 is no multiple of the chunk (the Pallas kernel asserts
+        one); held to the JAX reference in one chunk and to the
+        sequential recurrence."""
+        rng = np.random.RandomState(8)
+        x, la, B, C = _ssd_arrays(rng, 1, 100, 2, 8, 16)
+        got = _port_ssd(x, la, B, C, 32)
+        ref, _ = jax_ssd_ref(x, la, B, C, chunk=100)
+        assert _rel(got, ref) < 1e-5
+        assert _rel(got, _sequential_ssd(x, la, B, C)) < 1e-5
+
+    def test_vs_sequential_recurrence(self):
+        rng = np.random.RandomState(11)
+        x, la, B, C = _ssd_arrays(rng, 1, 64, 2, 8, 8, la_scale=0.2)
+        got = _port_ssd(x, la, B, C, 16)
+        assert _rel(got, _sequential_ssd(x, la, B, C)) < 1e-5
+
+    def test_chunk_invariance(self):
+        rng = np.random.RandomState(12)
+        args = _ssd_arrays(rng, 1, 128, 1, 8, 8)
+        assert _rel(_port_ssd(*args, 16), _port_ssd(*args, 64)) < 1e-5
+
+    def test_final_state_matches_jax_reference(self):
+        rng = np.random.RandomState(13)
+        x, la, B, C = _ssd_arrays(rng, 2, 48, 2, 8, 16)
+        _, got = sd.ssd_plain(*(torch.from_numpy(a) for a in (x, la, B, C)),
+                              chunk=16)
+        _, want = jax_ssd_ref(x, la, B, C, chunk=16)
+        assert _rel(got.numpy(), want) < 1e-5
+
+    @pytest.mark.parametrize("g", [1, 2])
+    def test_gradients_match_jax_vjp(self, g):
+        rng = np.random.RandomState(14 + g)
+        h, chunk = 4, 16
+        x, la, B, C = _ssd_arrays(rng, 2, 64, h, 16, 16, g=g)
+        gy = rng.randn(*x.shape).astype(np.float32)
+
+        def f(x, la, B, C):
+            return jax_ssd_ref(x, la, jnp.repeat(B, h // g, axis=2),
+                               jnp.repeat(C, h // g, axis=2), chunk=chunk)[0]
+
+        _, vjp = jax.vjp(f, *(jnp.asarray(a) for a in (x, la, B, C)))
+        want = vjp(jnp.asarray(gy))
+        ins = [torch.from_numpy(a).requires_grad_() for a in (x, la, B, C)]
+        y, _ = sd.ssd(*ins, chunk=chunk)
+        got = torch.autograd.grad(y, ins, torch.from_numpy(gy))
+        for a, b in zip(got, want):
+            assert a.shape == b.shape
+            assert _rel(a.numpy(), b) < 1e-5
+
+    def test_cpu_tensors_take_the_plain_version(self):
+        rng = np.random.RandomState(15)
+        ins = [torch.from_numpy(a) for a in _ssd_arrays(rng, 1, 32, 2, 8, 16)]
+        before = sd.ssd_fwd.launches
+        y, _ = sd.ssd(*ins, chunk=8)
+        torch.testing.assert_close(y, sd.ssd_plain(*ins, chunk=8)[0],
+                                   atol=0, rtol=0)
+        assert sd.ssd_fwd.launches == before
+
+
+def _rglru_arrays(rng, B, S, W, la_scale=0.2):
+    return ((-np.abs(rng.randn(B, S, W)) * la_scale).astype(np.float32),
+            (rng.randn(B, S, W) * 0.5).astype(np.float32))
+
+
+class TestRGLRU:
+    # the cases of tests/test_kernels.py at its 1e-5 relative bar
+    @pytest.mark.parametrize("S,W,chunk,bw", [
+        (64, 16, 16, 16), (128, 64, 32, 32), (256, 32, 128, 32)])
+    def test_matches_pallas_and_reference(self, S, W, chunk, bw):
+        rng = np.random.RandomState(S + W)
+        la, b = _rglru_arrays(rng, 2, S, W)
+        got = rg.rglru_scan(torch.from_numpy(la), torch.from_numpy(b))
+        pallas = jax_rglru(la, b, chunk=chunk, block_w=bw, interpret=True)
+        for want in (pallas, jax_rglru_ref(la, b)):
+            assert _rel(got.numpy(), want) < 1e-5
+
+    def test_ragged_sequence_and_strong_decay(self):
+        """S = 600, no multiple of any chunk, at recurrentgemma's decays
+        (log a down to about -55): a log-space cumulative sum would leave
+        fp32's range here."""
+        rng = np.random.RandomState(16)
+        la = (-rng.rand(2, 600, 24) * 55.0).astype(np.float32)
+        la[:, ::7] *= 1e-3                    # some steps keep their state
+        b = (rng.randn(2, 600, 24) * 0.5).astype(np.float32)
+        got = rg.rglru_scan(torch.from_numpy(la), torch.from_numpy(b))
+        assert np.isfinite(got.numpy()).all()
+        assert _rel(got.numpy(), jax_rglru_ref(la, b)) < 1e-5
+
+    @pytest.mark.parametrize("S", [64, 150])
+    def test_reverse_mode_backward_matches_jax_vjp(self, S):
+        rng = np.random.RandomState(17 + S)
+        la, b = _rglru_arrays(rng, 2, S, 24, la_scale=0.5)
+        gh = rng.randn(2, S, 24).astype(np.float32)
+        _, vjp = jax.vjp(jax_rglru_ref, jnp.asarray(la), jnp.asarray(b))
+        want = vjp(jnp.asarray(gh))
+        ins = [torch.from_numpy(a).requires_grad_() for a in (la, b)]
+        got = torch.autograd.grad(rg.rglru_scan(*ins), ins,
+                                  torch.from_numpy(gh))
+        for a, w in zip(got, want):
+            assert _rel(a.numpy(), w) < 1e-5
+
+    def test_reverse_scan_is_the_backward_recurrence(self):
+        """g_t = gh_t + a_{t+1} g_{t+1}, a_S = 0, against a float64 loop."""
+        rng = np.random.RandomState(18)
+        la, gh = _rglru_arrays(rng, 1, 40, 5, la_scale=0.5)
+        a = np.exp(la.astype(np.float64))
+        want = np.zeros_like(a)
+        acc = np.zeros((1, 5))
+        for t in reversed(range(40)):
+            acc = (a[:, t + 1] if t + 1 < 40 else 0.0) * acc + gh[:, t]
+            want[:, t] = acc
+        got = rg.rglru_scan_reverse(torch.from_numpy(la), torch.from_numpy(gh))
+        assert _rel(got.numpy(), want) < 1e-6
+
+    def test_cpu_tensors_take_the_plain_version(self):
+        rng = np.random.RandomState(19)
+        la, b = (torch.from_numpy(a).requires_grad_()
+                 for a in _rglru_arrays(rng, 1, 32, 8))
+        before = (rg.rglru_scan_fwd.launches, rg.rglru_scan_reverse.launches)
+        h = rg.rglru_scan(la, b)
+        torch.autograd.grad(h.sum(), (la, b))
+        torch.testing.assert_close(h, rg.rglru_scan_ref(la, b), atol=0,
+                                   rtol=0)
+        assert (rg.rglru_scan_fwd.launches,
+                rg.rglru_scan_reverse.launches) == before

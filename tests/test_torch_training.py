@@ -1,5 +1,6 @@
-"""The port's training hooks against the JAX package on the CPU, at phi3
-SMOKE in fp32: FL rounds of `TorchTrainerHooks(device="cpu")` against a
+"""The port's training hooks against the JAX package on the CPU, at the
+SMOKE sizes of phi3, mamba2 and recurrentgemma in fp32: FL rounds of
+`TorchTrainerHooks(device="cpu")` against a
 single-device JAX reference built from the JAX package's own pieces, the
 JAX package's `FLCloudRunner` driving the port's hooks to the same
 dollars and event trace, and the port's rules (no JAX or `repro`
@@ -33,6 +34,7 @@ from repro_torch.fl.training import TorchTrainerHooks
 
 REPO = Path(__file__).resolve().parents[1]
 JCFG = jconfigs.get_config("phi3-mini-3.8b", smoke=True)
+MODELS = ["phi3-mini-3.8b", "mamba2-1.3b", "recurrentgemma-2b"]
 NAMES = ("client_0", "client_1")
 # lr below the hooks' default 5e-3: at 5e-3 the first steps move the
 # 0.02-scale embeddings tenfold, and the fp32 rounding differences
@@ -47,10 +49,19 @@ def _hooks(quantize, device="cpu", **kw):
                              device=device, **kw)
 
 
-_grad_fn = jax.jit(jax.value_and_grad(lambda p, b: jlm.loss_fn(p, JCFG, b)))
+_GRAD_FNS = {}
 
 
-def _jax_rounds(init, schedule, quantize, seed=0):
+def _grad_fn(model):
+    """The JAX package's jitted loss and gradient of `model` SMOKE."""
+    if model not in _GRAD_FNS:
+        cfg = jconfigs.get_config(model, smoke=True)
+        _GRAD_FNS[model] = jax.jit(jax.value_and_grad(
+            lambda p, b: jlm.loss_fn(p, cfg, b)))
+    return _GRAD_FNS[model]
+
+
+def _jax_rounds(init, schedule, quantize, seed=0, model=MODELS[0]):
     """The JAX package's round on one device: every slot trains (as the
     vmap does), non-participants get weight 0 and keep their momentum,
     participants' deltas optionally go through the int8 codec, and
@@ -59,7 +70,9 @@ def _jax_rounds(init, schedule, quantize, seed=0):
     n = len(NAMES)
     mus = [jax.tree.map(lambda p: jnp.zeros(p.shape, jnp.float32), params)
            for _ in range(n)]
-    streams = [jax_token_stream(JCFG.vocab_size, BATCH, SEQ,
+    grad_fn = _grad_fn(model)
+    vocab = jconfigs.get_config(model, smoke=True).vocab_size
+    streams = [jax_token_stream(vocab, BATCH, SEQ,
                                 seed=seed + 17 * i) for i in range(n)]
     mean_losses = []
     for live, stale in schedule:
@@ -72,7 +85,7 @@ def _jax_rounds(init, schedule, quantize, seed=0):
         for i in range(n):
             p, m, ls = params, mus[i], []
             for b in batches[i]:
-                loss, g = _grad_fn(p, {k: jnp.asarray(v) for k, v in b.items()})
+                loss, g = grad_fn(p, {k: jnp.asarray(v) for k, v in b.items()})
                 m = jax.tree.map(lambda mi, gi: 0.9 * mi + gi.astype(jnp.float32),
                                  m, g)
                 p = jax.tree.map(lambda pi, mi: (pi.astype(jnp.float32)
@@ -115,28 +128,36 @@ def _play(hooks, schedule):
 
 class TestHooksMatchJaxReference:
     # fp32 on both sides, summed in other orders: per-round losses agree
-    # to 2e-4 and every parameter to 2% of its leaf's largest update;
-    # dropping the staleness discount, the momentum carry, a
-    # non-participant's batch draw or the codec round trip fails cases
-    # here
+    # to 2e-4 and every parameter to 2% of its leaf's largest update plus
+    # 2 ulps of its largest entry, and a leaf the reference moves by more
+    # than an ulp moves here too. The ulps matter where 2% of an update
+    # is under an ulp: at this lr recurrentgemma SMOKE moves about half
+    # of its leaves by only a few ulps (its tail's RG-LRU gates get
+    # gradients near 1e-9 and stay put in both packages). Dropping the
+    # staleness discount, the momentum carry, a non-participant's batch
+    # draw or the codec round trip fails cases here
+    @pytest.mark.parametrize("model", MODELS)
     @pytest.mark.parametrize("quantize", [False, True])
     @pytest.mark.parametrize("schedule", list(SCHEDULES))
-    def test_rounds(self, schedule, quantize):
-        hooks = _hooks(quantize)
+    def test_rounds(self, schedule, quantize, model):
+        hooks = _hooks(quantize, model=model)
         init = dict(bridge.flatten_with_paths(
             bridge.params_to_numpy(hooks.global_params())))
         _play(hooks, SCHEDULES[schedule])
         want_params, want_losses = _jax_rounds(
-            bridge.unflatten(init), SCHEDULES[schedule], quantize)
+            bridge.unflatten(init), SCHEDULES[schedule], quantize,
+            model=model)
         got_losses = [rec["mean_loss"] for rec in hooks.losses]
         np.testing.assert_allclose(got_losses, want_losses, atol=2e-4)
         got = dict(bridge.flatten_with_paths(
             bridge.params_to_numpy(hooks.global_params())))
         for k, want in bridge.flatten_with_paths(want_params):
             update = np.max(np.abs(want - init[k]))
-            assert update > 0, f"{k} did not move"
+            ulp = np.spacing(np.max(np.abs(want)))
+            assert update <= ulp or np.any(got[k] != init[k]), (
+                f"{k} did not move")
             err = np.max(np.abs(got[k] - want))
-            assert err <= 2e-2 * update, (k, err, update)
+            assert err <= 2e-2 * update + 2 * ulp, (k, err, update)
 
     @pytest.mark.parametrize("quantize", [False, True])
     def test_aggregation_is_exact_on_equal_client_results(self, quantize):
@@ -214,11 +235,14 @@ def _run(hooks, quantize, record_to):
                          record_to=record_to).run()
 
 
+@pytest.mark.parametrize("model", MODELS)
 @pytest.mark.parametrize("quantize", [False, True])
-def test_cloud_runner_bills_the_port_like_the_jax_package(quantize, tmp_path):
-    hooks = _hooks(quantize)
+def test_cloud_runner_bills_the_port_like_the_jax_package(quantize, model,
+                                                         tmp_path):
+    hooks = _hooks(quantize, model=model)
     got = _run(hooks, quantize, tmp_path / "port.events.jsonl")
-    stub = _PayloadOnly(jlm.init_params(JCFG, jax.random.PRNGKey(0)))
+    stub = _PayloadOnly(jlm.init_params(jconfigs.get_config(model, smoke=True),
+                                        jax.random.PRNGKey(0)))
     want = _run(stub, quantize, tmp_path / "jax.events.jsonl")
     assert got.comm_cost > 0.0
     assert got.total_cost == pytest.approx(want.total_cost, abs=1e-9)

@@ -16,7 +16,9 @@ model's path launches. Then it checks a SMOKE-size run of each model on
 the card against the same run on the CPU, and times each kernel beside
 its plain version, its bound and the PyTorch library call that computes
 the same function where there is one (a yardstick only; the port never
-calls it), and one round of each model.
+calls it), and one round of each model. After the build it reads the
+SASS of the bf16 flash-attention library and fails unless every head
+dim's instance runs its products on the tensor cores (HGMMA).
 
 Any failure exits non-zero. Without a CUDA device, or outside a
 checkout, it exits non-zero before printing any result. The last two
@@ -29,6 +31,7 @@ import dataclasses
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 
@@ -57,8 +60,12 @@ PATHS = (("phi3-mini-3.8b", 2, MAIN_B, MAIN_S, ()),
 # ssd at mamba2-1.3b's layer: b, s, heads, head dim, groups, state, chunk
 SSD_MAIN = (2, 2048, 64, 64, 1, 128, 256)
 RGLRU_MAIN = (1, 4096, 2560)        # recurrentgemma-2b's layer: B, S, W
-# flash at recurrentgemma-2b's local attention: B, S, N, H, window
+# flash at recurrentgemma-2b's local attention: B, S, N, H, window; its
+# row in the kernels line
 FLASH_RG = (1, 4096, 10, 256, 2048)
+FLASH_RG_ROW = "flash_attention_fwd@recurrentgemma-2b"
+FLASH_SM90 = ("src/repro_torch/kernels/flash_attention/csrc/"
+              "flash_attention_fwd_sm90.cu")
 
 
 def _fail(msg):
@@ -126,6 +133,57 @@ def _counters():
             "rglru_scan_reverse": rg.rglru_scan_reverse}
 
 
+def _kernel_name(mangled):
+    """A kernel's name and integer template arguments from its mangled
+    name: `flash_fwd_sm90_kernel<96,128>`."""
+    pos = 3 if mangled.startswith("_ZN") else 2
+    while True:
+        m = re.match(r"\d+", mangled[pos:])
+        if not m:
+            return mangled
+        size = int(m.group())
+        pos += len(m.group())
+        ident, pos = mangled[pos:pos + size], pos + size
+        if ident.endswith("kernel"):
+            args = re.match(r"I((?:Li-?\d+E)+)E", mangled[pos:])
+            if args is None:
+                return ident
+            ints = re.findall(r"Li(-?\d+)E", args.group(1))
+            return f"{ident}<{','.join(ints)}>"
+
+
+def _ptxas_lines(log):
+    """ptxas's register and spill lines, each under its kernel's name."""
+    name = "?"
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            name = _kernel_name(m.group(1))
+        elif "registers" in line or "spill" in line:
+            yield f"{name}: {line.strip()}"
+
+
+def _check_hgmma():
+    """Every head dim's instance of the bf16 flash library has wgmma
+    (HGMMA) instructions in its SASS."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.flash_attention import ops as fa
+    sass = subprocess.run(
+        [_build.cuda_tool("cuobjdump"), "-sass",
+         str(_build.library_path(fa._STEM_SM90))],
+        capture_output=True, text=True, check=True).stdout
+    counts = {}
+    for block in re.split(r"\n\s*Function : ", sass)[1:]:
+        counts[_kernel_name(block.split()[0])] = block.count("HGMMA")
+    for name, c in counts.items():
+        print(f"[build] {fa._STEM_SM90} SASS: {name}: {c} HGMMA")
+    dims = {int(m.group(1)) for name, c in counts.items() if c > 0
+            for m in [re.search(r"<(\d+)", name)] if m}
+    _check(dims == set(fa.HEAD_DIMS),
+           f"HGMMA in the bf16 flash instances of head dims {sorted(dims)}, "
+           f"want {list(fa.HEAD_DIMS)}")
+
+
 def phase_build():
     from repro_torch.kernels import _build
     print(f"[device] {torch.cuda.get_device_name(0)}; torch "
@@ -134,9 +192,9 @@ def phase_build():
     print(f"[build] {len(_build.sources())} kernel sources built in "
           f"{secs:.2f} s")
     for stem in _build.sources():
-        for line in _build.build_log(stem).splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"[build] {stem}: {line.strip()}")
+        for line in _ptxas_lines(_build.build_log(stem)):
+            print(f"[build] {stem}: {line}")
+    _check_hgmma()
 
 
 def _randn(gen, *shape, dtype=torch.float32, scale=1.0):
@@ -157,43 +215,43 @@ def _rglru_inputs(gen, B, S, W):
             _randn(gen, B, S, W, scale=0.5))
 
 
+def _check_flash_bf16(fa, gen, B, S, N, H, window):
+    """The bf16 kernel against the plain version in fp32 on the same
+    bf16 inputs: the kernel computes in fp32 and rounds its output to
+    bf16 once, so each output lies within half a bf16 ulp (at most 2^-8
+    of itself) of the fp32 result, plus fp32 rounding. Returns max |err|."""
+    q, k, v = (_randn(gen, B, S, N, H, dtype=torch.bfloat16)
+               for _ in range(3))
+    out = fa.flash_attention_fwd(q, k, v, window=window)
+    torch.cuda.synchronize()
+    _check(out.dtype == torch.bfloat16, f"flash bf16 gave {out.dtype}")
+    want = fa.flash_attention_plain(q.float(), k.float(), v.float(),
+                                    window=window)
+    err = (out.float() - want).abs()
+    top = want.abs().max().item()
+    bar = 2.0 ** -8 * want.abs() + 1e-5 * top
+    worst = (err / bar).max().item()
+    _check(bool((err <= bar).all()),
+           f"flash bf16 {(B, S, N, H)} window={window}: max |err| "
+           f"{err.max().item()}, {worst} of the bar, against the fp32 "
+           f"plain version")
+    print(f"[kernels] flash bf16 {(B, S, N, H)} window={window}: max |err| "
+          f"{err.max().item():.3e} against the fp32 plain version, "
+          f"{err.max().item() / top:.3e} of max |ref|, worst element "
+          f"{worst:.3f} of its bar (2^-8 |ref| + 1e-5 max |ref|, one bf16 "
+          f"rounding)")
+    return err.max().item()
+
+
 def phase_kernels(gen):
     """Each kernel against its plain version on the card."""
     from repro_torch.kernels.flash_attention import ops as fa
     from repro_torch.kernels.grad_quant import ops as gq
 
-    errs = {}
-    shape = (MAIN_B, MAIN_S, MAIN_N, MAIN_H)
-    q, k, v = (_randn(gen, *shape, dtype=torch.bfloat16) for _ in range(3))
-    out = fa.flash_attention_fwd(q, k, v)
-    torch.cuda.synchronize()
-    want = fa.flash_attention_plain(q, k, v)
-    err = (out.float() - want.float()).abs()
-    _check(bool((err <= 2e-2 + 2e-2 * want.float().abs()).all()),
-           f"flash bf16 {shape}: max |err| {err.max().item()}")
-    errs["flash_attention_fwd"] = err.max().item()
-    print(f"[kernels] flash bf16 {shape} causal: max |err| "
-          f"{errs['flash_attention_fwd']:.3e} (tolerance 2e-2)")
-
-    # recurrentgemma's shape, held to the plain version in fp32 on the
-    # same bf16 inputs: the kernel computes in fp32 and rounds its output
-    # to bf16 once, so each output lies within half a bf16 ulp (at most
-    # 2^-8 of itself) of the fp32 result, plus fp32 rounding
+    errs = {"flash_attention_fwd": _check_flash_bf16(
+        fa, gen, MAIN_B, MAIN_S, MAIN_N, MAIN_H, None)}
     B, S, N, H, window = FLASH_RG
-    q, k, v = (_randn(gen, B, S, N, H, dtype=torch.bfloat16)
-               for _ in range(3))
-    out = fa.flash_attention_fwd(q, k, v, window=window).float()
-    want = fa.flash_attention_plain(q.float(), k.float(), v.float(),
-                                    window=window)
-    err = (out - want).abs()
-    top = want.abs().max().item()
-    _check(bool((err <= 2.0 ** -8 * want.abs() + 1e-5 * top).all()),
-           f"flash bf16 {FLASH_RG}: max |err| {err.max().item()} against "
-           f"the fp32 plain version")
-    print(f"[kernels] flash bf16 {(B, S, N, H)} window={window}: max |err| "
-          f"{err.max().item():.3e} against the fp32 plain version, "
-          f"{err.max().item() / top:.3e} of max |ref| (tolerance 2^-8 "
-          f"|ref| + 1e-5 max |ref|, one bf16 rounding)")
+    errs[FLASH_RG_ROW] = _check_flash_bf16(fa, gen, B, S, N, H, window)
 
     for (B, S, N, H, window, softcap) in [
             (2, 256, 2, 64, None, None), (1, 512, 2, 32, 128, None),
@@ -460,53 +518,58 @@ def phase_small_reference(arch):
               f"ulps)")
 
 
-def phase_times(gen, launches, errs, deltas):
+def _total_launches(path_launches):
+    return {name: sum(c[name] for c in path_launches.values())
+            for name in _counters()}
+
+
+def _flash_row(fa, gen, name, B, S, N, H, window, launches, err):
+    """Flash at one main path's shape: the kernel, its plain version, its
+    bound and SDPA (the window as a boolean mask where there is one)."""
+    q, k, v = (_randn(gen, B, S, N, H, dtype=torch.bfloat16)
+               for _ in range(3))
+    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+    if window is None:
+        def lib():
+            return torch.nn.functional.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=True)
+    else:
+        pos = torch.arange(S, device="cuda")
+        mask = ((pos[None, :] <= pos[:, None])
+                & (pos[None, :] > pos[:, None] - window))
+
+        def lib():
+            return torch.nn.functional.scaled_dot_product_attention(
+                qt, kt, vt, attn_mask=mask)
+    bound, by = _bound_ms(4 * q.numel() * q.element_size(),
+                          _causal_flops(B, S, N, H, window), torch.bfloat16)
+    return dict(
+        name=name, route="cuda", source=FLASH_SM90,
+        replaces="src/repro/kernels/flash_attention/kernel.py:85",
+        launches=launches, max_abs_err=err,
+        ms=_time_ms(lambda: fa.flash_attention_fwd(q, k, v, window=window)),
+        plain_ms=_time_ms(lambda: fa.flash_attention_plain(q, k, v,
+                                                           window=window),
+                          iters=3),
+        bound_ms=bound, bound_by=by, library_ms=_time_ms(lib))
+
+
+def phase_times(gen, path_launches, errs, deltas):
+    """The kernels line: each kernel at its main path's shape. Launches
+    are those of the path that runs it at that shape, or of all three."""
     from repro_torch.kernels.flash_attention import ops as fa
     from repro_torch.kernels.grad_quant import ops as gq
     from repro_torch.kernels.rglru import ops as rg
     from repro_torch.kernels.ssd import ops as sd
 
-    rows = []
-    shape = (MAIN_B, MAIN_S, MAIN_N, MAIN_H)
-    q, k, v = (_randn(gen, *shape, dtype=torch.bfloat16) for _ in range(3))
-    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
-    bound, by = _bound_ms(4 * q.numel() * q.element_size(),
-                          _causal_flops(*shape), torch.bfloat16)
-    rows.append(dict(
-        name="flash_attention_fwd", route="cuda",
-        source="src/repro_torch/kernels/flash_attention/csrc/"
-               "flash_attention_fwd.cu",
-        replaces="src/repro/kernels/flash_attention/kernel.py:85",
-        launches=launches["flash_attention_fwd"],
-        max_abs_err=errs["flash_attention_fwd"],
-        ms=_time_ms(lambda: fa.flash_attention_fwd(q, k, v)),
-        plain_ms=_time_ms(lambda: fa.flash_attention_plain(q, k, v)),
-        bound_ms=bound, bound_by=by,
-        library_ms=_time_ms(lambda: torch.nn.functional
-                            .scaled_dot_product_attention(qt, kt, vt,
-                                                          is_causal=True))))
-
-    # flash at recurrentgemma's local attention, printed beside the row
-    B, S, N, H, window = FLASH_RG
-    q, k, v = (_randn(gen, B, S, N, H, dtype=torch.bfloat16)
-               for _ in range(3))
-    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
-    pos = torch.arange(S, device="cuda")
-    mask = (pos[None, :] <= pos[:, None]) & (pos[None, :] > pos[:, None]
-                                             - window)
-    rg_bound, rg_by = _bound_ms(4 * q.numel() * q.element_size(),
-                                _causal_flops(B, S, N, H, window),
-                                torch.bfloat16)
-    rg_ms = _time_ms(lambda: fa.flash_attention_fwd(q, k, v, window=window))
-    rg_plain = _time_ms(lambda: fa.flash_attention_plain(q, k, v,
-                                                         window=window),
-                        iters=3)
-    rg_lib = _time_ms(lambda: torch.nn.functional
-                      .scaled_dot_product_attention(qt, kt, vt,
-                                                    attn_mask=mask))
-    print(f"[times] flash_attention_fwd at {(B, S, N, H)} window={window}: "
-          f"kernel {rg_ms:.4f} ms, plain {rg_plain:.4f} ms, bound "
-          f"{rg_bound:.4f} ms ({rg_by}), library {rg_lib:.4f} ms")
+    launches = _total_launches(path_launches)
+    rows = [_flash_row(fa, gen, "flash_attention_fwd", MAIN_B, MAIN_S,
+                       MAIN_N, MAIN_H, None,
+                       path_launches["phi3-mini-3.8b"]["flash_attention_fwd"],
+                       errs["flash_attention_fwd"]),
+            _flash_row(fa, gen, FLASH_RG_ROW, *FLASH_RG,
+                       path_launches["recurrentgemma-2b"]
+                       ["flash_attention_fwd"], errs[FLASH_RG_ROW])]
 
     # the codec over one phi3 client's whole delta: every leaf once, as a
     # round of the int8 arm does per participant
@@ -609,18 +672,17 @@ def main():
 
     phase_build()
     errs = phase_kernels(gen)
-    launches = dict.fromkeys(_counters(), 0)
-    deltas = None
+    path_launches, deltas = {}, None
     for arch, layers, batch, seq, may_stay in PATHS:
-        counts, d = phase_main_path(arch, layers, batch, seq, may_stay)
-        for name, c in counts.items():
-            launches[name] += c
+        path_launches[arch], d = phase_main_path(arch, layers, batch, seq,
+                                                 may_stay)
         deltas = deltas or d
         del d
-    print(f"[main] launches over the three main paths: {launches}")
+    print(f"[main] launches over the three main paths: "
+          f"{_total_launches(path_launches)}")
     for arch, *_ in PATHS:
         phase_small_reference(arch)
-    rows = phase_times(gen, launches, errs, deltas)
+    rows = phase_times(gen, path_launches, errs, deltas)
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",

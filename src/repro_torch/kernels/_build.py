@@ -40,15 +40,17 @@ def sources() -> Dict[str, Path]:
     return {p.stem: p for p in sorted(KERNELS_DIR.glob("*/csrc/*.cu"))}
 
 
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
+def cuda_tool(name: str) -> str:
+    """A CUDA toolkit program (`nvcc`, `cuobjdump`) on PATH or in
+    /usr/local/cuda/bin."""
+    found = shutil.which(name)
     if found:
         return found
-    default = "/usr/local/cuda/bin/nvcc"
+    default = f"/usr/local/cuda/bin/{name}"
     if os.path.exists(default):
         return default
-    raise RuntimeError("nvcc not found: the port's CUDA kernels are built "
-                       "from source on the machine with the card")
+    raise RuntimeError(f"{name} not found: the port's CUDA kernels are "
+                       f"built from source on the machine with the card")
 
 
 def _library_path(src: Path) -> Path:
@@ -62,8 +64,9 @@ def _compile(src: Path) -> Path:
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)],
-                          capture_output=True, text=True)
+    proc = subprocess.run(
+        [cuda_tool("nvcc"), *NVCC_FLAGS, "-o", str(tmp), str(src)],
+        capture_output=True, text=True)
     # ptxas -v reports registers, shared memory and spills per kernel
     out.with_suffix(".log").write_text(proc.stdout + proc.stderr)
     if proc.returncode != 0:
@@ -83,9 +86,14 @@ def build_all() -> float:
     return time.perf_counter() - t0
 
 
+def library_path(stem: str) -> Path:
+    """Where the library built from `<stem>.cu` lies."""
+    return _library_path(sources()[stem])
+
+
 def build_log(stem: str) -> str:
     """What nvcc and ptxas said when they built `stem`."""
-    return _library_path(sources()[stem]).with_suffix(".log").read_text()
+    return library_path(stem).with_suffix(".log").read_text()
 
 
 def library(stem: str) -> ctypes.CDLL:

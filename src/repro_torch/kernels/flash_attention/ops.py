@@ -2,9 +2,11 @@
 already expanded to N heads by the attention layer.
 
 Differentiable through `torch.autograd.Function`: the forward is
-`flash_attention_fwd`, which launches the kernel in
-`csrc/flash_attention_fwd.cu` on a CUDA tensor (adding one to its
-`launches` count) and runs the plain version in `ref.py` on a CPU tensor.
+`flash_attention_fwd`, which on a CUDA tensor launches one of two kernels
+(adding one to its `launches` count) and on a CPU tensor runs the plain
+version in `ref.py`. bf16 goes to `csrc/flash_attention_fwd_sm90.cu`, on
+the tensor cores; fp32 to `csrc/flash_attention_fwd.cu`, on the CUDA
+cores.
 The backward recomputes attention with the plain version under autograd,
 as the JAX package's `_fa_bwd` does with its reference; a backward kernel
 is queued in ROADMAP.
@@ -20,7 +22,8 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.flash_attention.ref import reference_attention
 
 HEAD_DIMS = (16, 32, 64, 96, 128, 256)
-_STEM = "flash_attention_fwd"
+_STEM = "flash_attention_fwd"               # fp32, CUDA cores
+_STEM_SM90 = "flash_attention_fwd_sm90"     # bf16, tensor cores
 
 
 def _fold(x):
@@ -42,16 +45,34 @@ def flash_attention_plain(q, k, v, *, causal=True, window=None,
     return _unfold(out, B, N)
 
 
-def _lib():
-    lib = _build.library(_STEM)
-    fn = lib.flash_attention_fwd
+def _entry(stem):
+    """The C entry of `stem`; both take the same arguments."""
+    fn = getattr(_build.library(stem), stem)
     if fn.argtypes is None:
         ptr, i32, i64, f32 = (ctypes.c_void_p, ctypes.c_int,
                               ctypes.c_longlong, ctypes.c_float)
-        fn.argtypes = ([ptr] * 4 + [i32] * 6 + [i64] * 12
+        fn.argtypes = ([ptr] * 4 + [i32] * 5 + [i64] * 12
                        + [f32, i32, i32, f32, ptr])
         fn.restype = ctypes.c_int
-    return lib
+    return fn
+
+
+def tma_ready(x):
+    """Whether the bf16 kernel's tensor maps can address x as it lies: a
+    16-byte-aligned base, H contiguous, and the (B, S, N) strides positive
+    multiples of 8 elements (16 bytes). A dim of size 1 never steps, so
+    its stride does not count."""
+    if x.stride(3) != 1 or x.data_ptr() % 16:
+        return False
+    return all(size == 1 or (st > 0 and st % 8 == 0)
+               for size, st in zip(x.shape[:3], x.stride()[:3]))
+
+
+def _map_strides(x):
+    """x's (B, S, N) strides, with 8 for a dim of size 1, which the tensor
+    map must still be given as a multiple of 16 bytes."""
+    return [8 if size == 1 else st
+            for size, st in zip(x.shape[:3], x.stride()[:3])]
 
 
 def flash_attention_fwd(q, k, v, *, causal=True, window=None, softcap=None):
@@ -78,17 +99,27 @@ def flash_attention_fwd(q, k, v, *, causal=True, window=None, softcap=None):
         raise ValueError(f"flash_attention: window must be >= 1, got {window}")
     if softcap is not None and softcap <= 0:
         raise ValueError(f"flash_attention: softcap must be > 0, got {softcap}")
-    if any(x.stride(3) != 1 for x in (q, k, v)):
-        q, k, v = (x.contiguous() for x in (q, k, v))
+    if q.dtype == torch.bfloat16:
+        # TMA reads the tensors as they lie, or a contiguous copy where
+        # their base or strides break its alignment
+        stem = _STEM_SM90
+        q, k, v = (x if tma_ready(x)
+                   else x.clone(memory_format=torch.contiguous_format)
+                   for x in (q, k, v))
+        strides = [st for x in (q, k, v) for st in _map_strides(x)]
+    else:
+        stem = _STEM
+        if any(x.stride(3) != 1 for x in (q, k, v)):
+            q, k, v = (x.contiguous() for x in (q, k, v))
+        strides = [st for x in (q, k, v) for st in x.stride()[:3]]
     o = torch.empty((B, S, N, H), dtype=q.dtype, device=q.device)
-    rc = _lib().flash_attention_fwd(
+    rc = _entry(stem)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-        int(q.dtype == torch.bfloat16), B, N, S, T, H,
-        *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *o.stride()[:3],
+        B, N, S, T, H, *strides, *o.stride()[:3],
         1.0 / math.sqrt(H), int(bool(causal)),
         0 if window is None else int(window),
         0.0 if softcap is None else float(softcap), _build.stream_ptr(q))
-    _build.check(_STEM, rc)
+    _build.check(stem, rc)
     flash_attention_fwd.launches += 1
     return o
 

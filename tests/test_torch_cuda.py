@@ -32,7 +32,11 @@ def _randn(gen, *shape, dtype=torch.float32, scale=1.0):
 
 # (B, S, N, H, dtype, window, softcap, tolerance): every head dim, ragged
 # lengths, window and softcap; 2e-5 in fp32 and 2e-2 in bf16, the bars of
-# the JAX package's own kernel tests
+# the JAX package's own kernel tests. A bf16 case with tolerance None is
+# held to the plain version in fp32 on the same bf16 inputs at one bf16
+# rounding (`_assert_rounds_once`): every head dim of the tensor-core
+# kernel, S of 77, 200, 333 and 600 (no multiple of its 128-row and
+# 64-key tiles), windows and softcaps
 FLASH_CASES = [
     (2, 256, 2, 64, torch.float32, None, None, 2e-5),
     (1, 512, 2, 32, torch.float32, 128, None, 2e-5),
@@ -43,7 +47,30 @@ FLASH_CASES = [
     (1, 130, 2, 128, torch.float32, 64, 10.0, 2e-5),
     (2, 1024, 4, 96, torch.bfloat16, None, None, 2e-2),
     (1, 333, 2, 128, torch.bfloat16, 100, None, 2e-2),
+    (2, 77, 2, 16, torch.bfloat16, None, None, None),
+    (1, 600, 2, 16, torch.bfloat16, 128, 10.0, None),
+    (1, 200, 2, 32, torch.bfloat16, 64, None, None),
+    (2, 333, 1, 32, torch.bfloat16, None, 30.0, None),
+    (2, 333, 2, 64, torch.bfloat16, None, 30.0, None),
+    (1, 77, 3, 64, torch.bfloat16, 16, None, None),
+    (1, 600, 2, 96, torch.bfloat16, 128, None, None),
+    (2, 200, 2, 96, torch.bfloat16, None, 50.0, None),
+    (2, 200, 3, 128, torch.bfloat16, None, 10.0, None),
+    (1, 600, 1, 128, torch.bfloat16, 256, None, None),
+    (1, 333, 2, 256, torch.bfloat16, 100, 20.0, None),
+    (1, 600, 1, 256, torch.bfloat16, None, None, None),
 ]
+
+
+def _assert_rounds_once(out, q, k, v, **opts):
+    """bf16 `out` within one bf16 rounding of the plain version in fp32 on
+    the same inputs: the kernel computes in fp32 and rounds each output
+    to bf16 once, so it lies within half a bf16 ulp (at most 2^-8 of
+    itself) of the fp32 result, plus fp32 rounding."""
+    want = fa.flash_attention_plain(q.float(), k.float(), v.float(), **opts)
+    err = (out.float() - want).abs()
+    bar = 2.0 ** -8 * want.abs() + 1e-5 * want.abs().max()
+    assert bool((err <= bar).all()), (err / bar).max().item()
 
 
 @pytest.mark.parametrize("B,S,N,H,dtype,window,softcap,tol", FLASH_CASES)
@@ -54,24 +81,45 @@ def test_flash_kernel_matches_plain(gen, B, S, N, H, dtype, window,
     out = fa.flash_attention_fwd(q, k, v, window=window, softcap=softcap)
     torch.cuda.synchronize()
     assert fa.flash_attention_fwd.launches == before + 1
+    assert out.dtype == dtype and out.shape == q.shape
+    if tol is None:
+        _assert_rounds_once(out, q, k, v, window=window, softcap=softcap)
+        return
     want = fa.flash_attention_plain(q, k, v, window=window, softcap=softcap)
-    assert out.dtype == dtype and out.shape == want.shape
     torch.testing.assert_close(out.float(), want.float(), atol=tol, rtol=tol)
 
 
 def test_flash_bf16_rounds_once_at_recurrentgemma_head_dim(gen):
-    # H=256 with a window, as recurrentgemma's local attention runs it:
-    # the kernel computes in fp32 and rounds each output to bf16 once, so
-    # it lies within half a bf16 ulp (at most 2^-8 of itself) of the fp32
-    # plain version on the same inputs, plus fp32 rounding
+    # H=256 with a window, as recurrentgemma's local attention runs it
     q, k, v = (_randn(gen, 1, 1024, 2, 256, dtype=torch.bfloat16)
                for _ in range(3))
-    out = fa.flash_attention_fwd(q, k, v, window=512).float()
-    want = fa.flash_attention_plain(q.float(), k.float(), v.float(),
-                                    window=512)
-    err = (out - want).abs()
-    assert bool((err <= 2.0 ** -8 * want.abs()
-                 + 1e-5 * want.abs().max()).all()), err.max().item()
+    out = fa.flash_attention_fwd(q, k, v, window=512)
+    _assert_rounds_once(out, q, k, v, window=512)
+
+
+@pytest.mark.parametrize("H", [64, 96])
+def test_flash_bf16_reads_packed_qkv(gen, H):
+    """bf16 q, k, v as views of one packed (B, S, N, 3H) tensor: the
+    tensor maps read them through their strides."""
+    qkv = _randn(gen, 2, 200, 3, 3 * H, dtype=torch.bfloat16)
+    q, k, v = qkv[..., :H], qkv[..., H:2 * H], qkv[..., 2 * H:]
+    assert all(fa.tma_ready(x) for x in (q, k, v))
+    out = fa.flash_attention_fwd(q, k, v, window=64)
+    _assert_rounds_once(out, q, k, v, window=64)
+
+
+def test_flash_bf16_copies_a_misaligned_input(gen):
+    """A bf16 q whose base address is 2 bytes off 16: TMA cannot read it
+    as it lies, so the wrapper copies it, and the result is right."""
+    B, S, N, H = 1, 130, 2, 64
+    buf = _randn(gen, B * S * N * H + 1, dtype=torch.bfloat16)
+    q = buf[1:].view(B, S, N, H)
+    k, v = (_randn(gen, B, S, N, H, dtype=torch.bfloat16) for _ in range(2))
+    assert q.is_contiguous() and not fa.tma_ready(q)
+    before = fa.flash_attention_fwd.launches
+    out = fa.flash_attention_fwd(q, k, v)
+    assert fa.flash_attention_fwd.launches == before + 1
+    _assert_rounds_once(out, q, k, v)
 
 
 def test_flash_kernel_reads_strided_inputs(gen):

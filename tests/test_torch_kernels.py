@@ -5,12 +5,18 @@ the int8 codec bit for bit against both JAX paths, the SSD scan against
 the Pallas kernel in interpret mode, `ssd_reference` and a sequential
 recurrence (gradients against `jax.vjp` of `ssd_reference`), and the
 RG-LRU scan against the Pallas kernel and `rglru_scan_ref` (its
-reverse-mode backward against `jax.vjp` of `rglru_scan_ref`).
+reverse-mode backward against `jax.vjp` of `rglru_scan_ref`). The bf16
+tensor-core flash kernel's arithmetic (key tiles in order, P as bf16 hi
++ lo) is emulated in plain PyTorch and held to JAX's fp32 reference at
+one bf16 rounding, and its wrapper's layout check is tested on CPU
+tensors.
 
 On the CPU each wrapper runs its plain version; the CUDA kernels are
 held to the same plain versions on the card (`chip_smoke.py` and
 `tests/test_torch_cuda.py`). Inputs come from numpy seeds and cross as
 numpy arrays."""
+import math
+
 import numpy as np
 import pytest
 
@@ -111,6 +117,89 @@ class TestFlashAttention:
         torch.testing.assert_close(out, fa.flash_attention_plain(tq, tk, tv),
                                    atol=0, rtol=0)
         assert fa.flash_attention_fwd.launches == before
+
+
+def _sm90_arithmetic(q, k, v, window, softcap, tile=64):
+    """The bf16 tensor-core kernel's arithmetic in plain PyTorch on the
+    CPU: key tiles of 64 in order, scores in the log2 domain, an online
+    softmax in fp32, P entering P.V as bf16 hi + bf16 lo with fp32 sums,
+    one bf16 rounding of the output. q: (BN, S, H), k, v: (BN, T, H)."""
+    q, k, v = q.float(), k.float(), v.float()
+    S, H, T = q.shape[1], q.shape[2], k.shape[1]
+    log2e = 1.4426950408889634
+    qpos = torch.arange(S)[:, None]
+    m = torch.full((q.shape[0], S, 1), -1e30)
+    l = torch.zeros(q.shape[0], S, 1)
+    o = torch.zeros(q.shape[0], S, H)
+    for k0 in range(0, T, tile):
+        s = q @ k[:, k0:k0 + tile].transpose(1, 2)
+        if softcap is None:
+            s = s * (1.0 / math.sqrt(H) * log2e)
+        else:
+            s = softcap * torch.tanh(s * (1.0 / math.sqrt(H)) / softcap) * log2e
+        kpos = torch.arange(k0, min(k0 + tile, T))[None, :]
+        ok = kpos <= qpos
+        if window is not None:
+            ok &= kpos > qpos - window
+        s = s.masked_fill(~ok, -1e30)
+        m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+        alpha, p = torch.exp2(m - m_new), torch.exp2(s - m_new)
+        hi = p.to(torch.bfloat16).float()
+        lo = (p - hi).to(torch.bfloat16).float()
+        vt = v[:, k0:k0 + tile]
+        o = o * alpha + hi @ vt + lo @ vt
+        l = l * alpha + p.sum(-1, keepdim=True)
+        m = m_new
+    return (o / l.clamp_min(1e-30)).to(torch.bfloat16)
+
+
+class TestTensorCoreFlashArithmetic:
+    """What the bf16 kernel computes, on the CPU; the kernel itself is held
+    to the same bar on the card (tests/test_torch_cuda.py)."""
+
+    @pytest.mark.parametrize("S,H,window,softcap", [
+        (200, 64, None, None), (333, 96, 100, None), (130, 32, None, 10.0),
+        (77, 16, 32, None)])
+    def test_hi_lo_p_rounds_once_against_jax_reference(self, S, H, window,
+                                                        softcap):
+        """P carried as bf16 hi + lo keeps the output within one bf16
+        rounding of JAX's fp32 reference on the same bf16 inputs."""
+        rng = np.random.RandomState(S + H)
+        jx, _ = _qkv(rng, 1, S, 2, H, jnp.bfloat16)
+        # the bf16 inputs, exactly, in fp32 and folded to (BN, S, H)
+        q, k, v = (_fold(np.asarray(x, np.float32)) for x in jx)
+        got = _sm90_arithmetic(*(torch.from_numpy(x) for x in (q, k, v)),
+                               window, softcap)
+        want = np.asarray(jax_ref(jnp.asarray(q), jnp.asarray(k),
+                                  jnp.asarray(v), window=window,
+                                  softcap=softcap))
+        err = np.abs(got.float().numpy() - want)
+        bar = 2.0 ** -8 * np.abs(want) + 1e-5 * np.abs(want).max()
+        assert (err <= bar).all(), (err / bar).max()
+
+    @pytest.mark.parametrize("make,ready", [
+        (lambda: torch.zeros(2, 64, 3, 96, dtype=torch.bfloat16), True),
+        (lambda: torch.zeros(2, 64, 3, 3 * 96,
+                             dtype=torch.bfloat16)[..., 96:192], True),
+        (lambda: torch.zeros(2 * 64 * 3 * 16 + 1,
+                             dtype=torch.bfloat16)[1:].view(2, 64, 3, 16),
+         False),
+        (lambda: torch.zeros(2, 3, 64, 32,
+                             dtype=torch.bfloat16).transpose(1, 2), True),
+        (lambda: torch.zeros(2, 64, 1, 36,
+                             dtype=torch.bfloat16)[..., :32], False),
+        (lambda: torch.zeros(1, 64, 1, 32, dtype=torch.bfloat16)
+         .as_strided((1, 64, 1, 32), (5, 32, 3, 1)), True),
+        (lambda: torch.zeros(2, 64, 1, 32,
+                             dtype=torch.bfloat16).expand(2, 64, 4, 32),
+         False),
+        (lambda: torch.zeros(2, 64, 3, 32,
+                             dtype=torch.bfloat16).transpose(2, 3), False)])
+    def test_tma_ready_layouts(self, make, ready):
+        """Which layouts the tensor maps take as they lie (a 16-byte base,
+        H contiguous, other strides multiples of 16 bytes; a size-1 dim's
+        stride never counts) and which the wrapper copies first."""
+        assert fa.tma_ready(make()) is ready
 
 
 def _tie_row():

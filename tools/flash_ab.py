@@ -1,0 +1,75 @@
+#!/usr/bin/env python3
+"""Time the bf16 flash-attention forward, and one FL round of each main
+path that runs it, for one checkout of the port on one CUDA card.
+
+    python3 tools/flash_ab.py [--src DIR] [--label NAME]
+
+DIR is the `src` directory of the checkout to time (default: this
+checkout's). The shapes, paths and timing are `chip_smoke.py`'s: the
+kernel's mean milliseconds (CUDA events) at phi3-mini-3.8b's shape and
+at recurrentgemma-2b's local attention, and `measure_round_s` of those
+two main paths (int8 arm). Prints one JSON line with them and the card's
+name and power limit as `nvidia-smi` gives them. To compare two
+checkouts on one card, run it on each in turns (A, B, B, A) on that
+card. It needs a card and exits non-zero without one.
+"""
+import argparse
+import dataclasses
+import json
+import os
+import subprocess
+import sys
+
+import torch
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, ROOT)
+import chip_smoke as smoke  # noqa: E402
+
+
+def main():
+    parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    parser.add_argument("--src", default=os.path.join(ROOT, "src"))
+    parser.add_argument("--label", default="")
+    args = parser.parse_args()
+    if not torch.cuda.is_available():
+        sys.exit("flash_ab: no CUDA card")
+    sys.path.insert(0, os.path.abspath(args.src))
+    from repro_torch import configs
+    from repro_torch.fl.training import TorchTrainerHooks
+    from repro_torch.kernels.flash_attention import ops as fa
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    shapes = {"phi3-mini-3.8b": (smoke.MAIN_B, smoke.MAIN_S, smoke.MAIN_N,
+                                 smoke.MAIN_H, None),
+              "recurrentgemma-2b": smoke.FLASH_RG}
+    result = {"label": args.label, "src": args.src, "kernel_ms": {},
+              "round_s": {}}
+    for arch, (B, S, N, H, window) in shapes.items():
+        q, k, v = (smoke._randn(gen, B, S, N, H, dtype=torch.bfloat16)
+                   for _ in range(3))
+        result["kernel_ms"][arch] = smoke._time_ms(
+            lambda: fa.flash_attention_fwd(q, k, v, window=window),
+            iters=20, warmup=3)
+        del q, k, v
+    for arch, layers, batch, seq, _ in smoke.PATHS:
+        if arch not in shapes:
+            continue
+        cfg = dataclasses.replace(configs.get_config(arch),
+                                  num_layers=layers)
+        hooks = TorchTrainerHooks(smoke.CLIENTS, cfg=cfg,
+                                  local_steps=smoke.LOCAL_STEPS,
+                                  batch=batch, seq=seq, lr=smoke.LR,
+                                  quantize=True, seed=0, device="cuda")
+        result["round_s"][arch] = hooks.measure_round_s(warmup=1, iters=2)
+        del hooks
+        torch.cuda.empty_cache()
+    result["card"] = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+    print(json.dumps(result))
+
+
+if __name__ == "__main__":
+    main()

@@ -17,8 +17,11 @@ the card against the same run on the CPU, and times each kernel beside
 its plain version, its bound and the PyTorch library call that computes
 the same function where there is one (a yardstick only; the port never
 calls it), and one round of each model. After the build it reads the
-SASS of the bf16 flash-attention library and fails unless every head
-dim's instance runs its products on the tensor cores (HGMMA).
+SASS of the two tensor-core libraries, bf16 flash attention and the
+bf16 SSD scan, and fails unless every head dim's and every state dim's
+instance runs its products on the tensor cores (HGMMA) and ptxas
+reports no spill in either. mamba2's ssd launches must all go to the
+tensor-core kernel.
 
 Any failure exits non-zero. Without a CUDA device, or outside a
 checkout, it exits non-zero before printing any result. The last two
@@ -66,6 +69,10 @@ FLASH_RG = (1, 4096, 10, 256, 2048)
 FLASH_RG_ROW = "flash_attention_fwd@recurrentgemma-2b"
 FLASH_SM90 = ("src/repro_torch/kernels/flash_attention/csrc/"
               "flash_attention_fwd_sm90.cu")
+SSD_SM90 = "src/repro_torch/kernels/ssd/csrc/ssd_fwd_sm90.cu"
+# rows of the pieces that ssd_fwd_sm90.cu cuts the sequence into, whatever
+# chunk the caller names
+SSD_PIECE = 128
 
 
 def _fail(msg):
@@ -108,7 +115,9 @@ def _causal_flops(B, S, N, H, window=None):
 def _ssd_flops(b, s, h, p, n, chunk):
     """The chunked form's products, per chunk of Q rows: C B^T and (.)x
     over the Q(Q+1)/2 causal pairs (j <= i) only, C . state and the
-    state update."""
+    state update. The function does not depend on the chunk, and fewer
+    rows a chunk take fewer products: pass the smallest chunk that a
+    kernel of the function is known to run at."""
     flops = 0.0
     for t0 in range(0, s, chunk):
         q = min(chunk, s - t0)
@@ -163,25 +172,42 @@ def _ptxas_lines(log):
             yield f"{name}: {line.strip()}"
 
 
-def _check_hgmma():
-    """Every head dim's instance of the bf16 flash library has wgmma
-    (HGMMA) instructions in its SASS."""
+def _hgmma_counts(stem):
+    """HGMMA (wgmma) instructions in the SASS of each kernel instance of
+    the library built from `stem`, printed and returned by name."""
     from repro_torch.kernels import _build
-    from repro_torch.kernels.flash_attention import ops as fa
     sass = subprocess.run(
         [_build.cuda_tool("cuobjdump"), "-sass",
-         str(_build.library_path(fa._STEM_SM90))],
+         str(_build.library_path(stem))],
         capture_output=True, text=True, check=True).stdout
     counts = {}
     for block in re.split(r"\n\s*Function : ", sass)[1:]:
         counts[_kernel_name(block.split()[0])] = block.count("HGMMA")
     for name, c in counts.items():
-        print(f"[build] {fa._STEM_SM90} SASS: {name}: {c} HGMMA")
-    dims = {int(m.group(1)) for name, c in counts.items() if c > 0
-            for m in [re.search(r"<(\d+)", name)] if m}
-    _check(dims == set(fa.HEAD_DIMS),
-           f"HGMMA in the bf16 flash instances of head dims {sorted(dims)}, "
-           f"want {list(fa.HEAD_DIMS)}")
+        print(f"[build] {stem} SASS: {name}: {c} HGMMA")
+    return counts
+
+
+def _check_hgmma():
+    """Every head dim's instance of the bf16 flash library, and every
+    instance of the bf16 ssd library (each state dim, p up to 64 and up
+    to 128), has wgmma (HGMMA) instructions in its SASS, and ptxas
+    reports no spill in either library."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.kernels.ssd import ops as sd
+    for stem, dims_want, what in [(fa._STEM_SM90, fa.HEAD_DIMS, "head"),
+                                  (sd._STEM_SM90, sd.STATE_DIMS, "state")]:
+        counts = _hgmma_counts(stem)
+        dims = {int(m.group(1)) for name, c in counts.items() if c > 0
+                for m in [re.search(r"<(\d+)", name)] if m}
+        _check(dims == set(dims_want) and all(counts.values()),
+               f"HGMMA in the {stem} instances of {what} dims "
+               f"{sorted(dims)}, want {list(dims_want)}, each instance: "
+               f"{counts}")
+        spills = [line for line in _ptxas_lines(_build.build_log(stem))
+                  if re.search(r"\b[1-9]\d* bytes spill", line)]
+        _check(not spills, f"{stem} spills: {spills}")
 
 
 def phase_build():
@@ -298,19 +324,57 @@ def _check_codec(gq, x, name):
           f"values bit-equal")
 
 
-def _check_ssd(gen, errs):
-    from repro_torch.kernels.ssd import ops as sd
-    b, s, h, p, g, n, chunk = SSD_MAIN
+def _check_ssd_bf16(sd, gen, shape, la_scale, sm90=True):
+    """The bf16 ssd kernel at `shape` with log decays -|z| la_scale: 2e-2
+    of the largest output against the plain version in bf16, and one
+    bf16 rounding (2^-8 |ref| + 1e-5 max |ref|) against the plain version
+    in fp32 on the same bf16 inputs, which the tensor-core kernel meets
+    by carrying its three fp32 operands as bf16 hi + lo and the CUDA-core
+    one (`sm90` false) by computing in fp32. Returns max |err| against
+    the fp32 plain version."""
+    b, s, h, p, g, n, chunk = shape
     x, la, B, C = _ssd_inputs(gen, b, s, h, p, g, n, torch.bfloat16)
+    la = la * (la_scale / 0.1)
+    before = sd.ssd_fwd.sm90_launches
     y = sd.ssd_fwd(x, la, B, C, chunk=chunk)
     torch.cuda.synchronize()
-    want, _ = sd.ssd_plain(x, la, B, C, chunk=chunk)
-    rel = _rel_err(y, want)
+    kernel = "tensor-core" if sm90 else "CUDA-core"
+    _check(sd.ssd_fwd.sm90_launches == before + int(sm90),
+           f"ssd bf16 {shape} did not run on the {kernel} kernel")
+    rel = _rel_err(y, sd.ssd_plain(x, la, B, C, chunk=chunk)[0])
     _check(y.dtype == torch.bfloat16 and rel <= 2e-2,
-           f"ssd bf16 {SSD_MAIN}: {y.dtype}, relative error {rel}")
-    errs["ssd_fwd"] = (y.float() - want.float()).abs().max().item()
-    print(f"[kernels] ssd bf16 {SSD_MAIN}: max |err| {errs['ssd_fwd']:.3e}, "
-          f"{rel:.3e} of max |ref| (tolerance 2e-2)")
+           f"ssd bf16 {shape}: {y.dtype}, relative error {rel}")
+    want, _ = sd.ssd_plain(x.float(), la, B.float(), C.float(), chunk=chunk)
+    err = (y.float() - want).abs()
+    top = want.abs().max().item()
+    bar = 2.0 ** -8 * want.abs() + 1e-5 * top
+    worst = (err / bar).max().item()
+    _check(bool((err <= bar).all()),
+           f"ssd bf16 {shape} decay scale {la_scale}: max |err| "
+           f"{err.max().item()}, {worst} of the bar, against the fp32 plain "
+           f"version")
+    print(f"[kernels] ssd bf16 (b, s, h, p, g, n, chunk)={shape} on the "
+          f"{kernel} kernel, log decay "
+          f"-|z|*{la_scale}: {rel:.3e} of max |ref| against the bf16 plain "
+          f"version (tolerance 2e-2); max |err| {err.max().item():.3e} "
+          f"against the fp32 plain version, {err.max().item() / top:.3e} of "
+          f"max |ref|, worst element {worst:.3f} of its bar (2^-8 |ref| + "
+          f"1e-5 max |ref|, one bf16 rounding)")
+    return err.max().item()
+
+
+def _check_ssd(gen, errs):
+    from repro_torch.kernels.ssd import ops as sd
+    errs["ssd_fwd"] = _check_ssd_bf16(sd, gen, SSD_MAIN, 0.1)
+    # mamba2-like decays (cs falls by about a hundred over a 128-row
+    # piece), at the main shape and at a ragged S
+    _check_ssd_bf16(sd, gen, SSD_MAIN, 1.0)
+    _check_ssd_bf16(sd, gen, (2, 1000, 64, 64, 1, 128, 256), 1.0)
+    # bf16 head dims off the tensor maps (no multiple of 8, or over 128)
+    # stay on the CUDA-core kernel: its bf16 instance at every state dim
+    for case in [(2, 300, 4, 20, 1, 128, 64), (1, 100, 4, 136, 2, 64, 8),
+                 (1, 200, 2, 12, 1, 32, 256), (2, 64, 3, 20, 3, 16, 16)]:
+        _check_ssd_bf16(sd, gen, case, 1.0, sm90=False)
     # ragged S, chunks of 8, 64 and 256, one and two groups, every state
     # dim, a head dim that is no multiple of the block's 32 columns
     for case in [(2, 64, 3, 16, 3, 16, 16), (1, 100, 4, 32, 2, 64, 8),
@@ -318,11 +382,14 @@ def _check_ssd(gen, errs):
                  (1, 256, 8, 64, 2, 128, 256)]:
         b, s, h, p, g, n, chunk = case
         x, la, B, C = _ssd_inputs(gen, b, s, h, p, g, n)
+        before = sd.ssd_fwd.sm90_launches
         rel = _rel_err(sd.ssd_fwd(x, la, B, C, chunk=chunk),
                        sd.ssd_plain(x, la, B, C, chunk=chunk)[0])
+        _check(sd.ssd_fwd.sm90_launches == before,
+               f"ssd fp32 {case} ran on the tensor-core kernel")
         _check(rel <= 1e-5, f"ssd fp32 {case}: relative error {rel}")
-        print(f"[kernels] ssd fp32 (b, s, h, p, g, n, chunk)={case}: "
-              f"{rel:.3e} of max |ref| (tolerance 1e-5)")
+        print(f"[kernels] ssd fp32 (b, s, h, p, g, n, chunk)={case} on the "
+              f"CUDA-core kernel: {rel:.3e} of max |ref| (tolerance 1e-5)")
 
 
 def _check_rglru(gen, errs):
@@ -411,6 +478,7 @@ def phase_main_path(arch, layers, batch, seq, may_stay):
     counters = _counters()
     for fn in counters.values():
         fn.launches = 0
+    counters["ssd_fwd"].sm90_launches = 0
     _play_rounds(hooks, 0, 1)
     fp32_losses = [r["mean_loss"] for r in hooks.losses]
     fp32_payload = hooks.update_payload(quantized=False)
@@ -419,16 +487,21 @@ def phase_main_path(arch, layers, batch, seq, may_stay):
     _play_rounds(hooks, 0, 1)
     torch.cuda.synchronize()
     launches = {name: fn.launches for name, fn in counters.items()}
+    ssd_sm90 = counters["ssd_fwd"].sm90_launches
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     int8_losses = [r["mean_loss"] for r in hooks.losses]
     print(f"[main] {cfg.name}: fp32 arm mean losses {fp32_losses}; int8 arm "
           f"mean losses {int8_losses}; peak device memory {peak_gb:.2f} GB")
-    print(f"[main] {cfg.name}: launches during its main path: {launches}")
+    print(f"[main] {cfg.name}: launches during its main path: {launches}; "
+          f"ssd on the tensor-core kernel: {ssd_sm90}")
 
     _check(all(math.isfinite(x) for x in fp32_losses + int8_losses),
            f"{cfg.name}: non-finite loss")
     want = _expected_launches(cfg, len(init))
     _check(launches == want, f"{cfg.name}: launched {launches}, want {want}")
+    _check(ssd_sm90 == launches["ssd_fwd"],
+           f"{cfg.name}: {ssd_sm90} of its {launches['ssd_fwd']} ssd "
+           f"launches on the tensor-core kernel")
 
     # every leaf got a gradient, and every leaf moved but those in
     # `may_stay`; one of those may stay put only if its last step,
@@ -622,11 +695,11 @@ def phase_times(gen, path_launches, errs, deltas):
     x, la, Bm, Cm = _ssd_inputs(gen, b, s, h, p, g, n, torch.bfloat16)
     nbytes = (2 * x.numel() * x.element_size() + la.numel() * 4
               + 2 * Bm.numel() * Bm.element_size())
-    bound, by = _bound_ms(nbytes, _ssd_flops(b, s, h, p, n, chunk),
-                          torch.bfloat16)
+    bound, by = _bound_ms(
+        nbytes, _ssd_flops(b, s, h, p, n, min(chunk, SSD_PIECE)),
+        torch.bfloat16)
     rows.append(dict(
-        name="ssd_fwd", route="cuda",
-        source="src/repro_torch/kernels/ssd/csrc/ssd_fwd.cu",
+        name="ssd_fwd", route="cuda", source=SSD_SM90,
         replaces="src/repro/kernels/ssd/kernel.py:70",
         launches=launches["ssd_fwd"], max_abs_err=errs["ssd_fwd"],
         ms=_time_ms(lambda: sd.ssd_fwd(x, la, Bm, Cm, chunk=chunk)),

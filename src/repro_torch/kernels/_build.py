@@ -3,8 +3,10 @@
 Every `*/csrc/*.cu` under this package is compiled at first use by
 `nvcc` for Hopper (`sm_90a`) into a shared library with a plain C
 interface, and loaded with `ctypes`. The library is named after the
-hash of its source and lands in `build/kernels/` at the repository
-root, so an edited source is rebuilt and an unchanged one is not.
+hash of its source and of the headers it includes with quotes (such as
+`sm90.cuh`, shared by the tensor-core kernels), and lands in
+`build/kernels/` at the repository root, so an edited source or header
+is rebuilt and an unchanged one is not.
 
 There is no fallback: a missing `nvcc`, a failed build or a failed
 launch raises. `--use_fast_math` is never passed, because the int8
@@ -18,12 +20,13 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
-from typing import Dict
+from typing import Dict, List
 
 import torch
 
@@ -53,9 +56,27 @@ def cuda_tool(name: str) -> str:
                        f"built from source on the machine with the card")
 
 
+def _headers(src: Path) -> List[Path]:
+    """The files `src` includes with quotes, found beside the file that
+    includes them, and the files they include in turn, in order."""
+    found: List[Path] = []
+    todo = [src]
+    while todo:
+        f = todo.pop(0)
+        for name in re.findall(r'^\s*#\s*include\s*"([^"]+)"',
+                               f.read_text(), re.M):
+            h = (f.parent / name).resolve()
+            if h not in found:
+                found.append(h)
+                todo.append(h)
+    return found
+
+
 def _library_path(src: Path) -> Path:
-    digest = hashlib.sha256(src.read_bytes()).hexdigest()[:16]
-    return BUILD_DIR / f"{src.stem}-{digest}.so"
+    h = hashlib.sha256(src.read_bytes())
+    for header in _headers(src):
+        h.update(header.read_bytes())
+    return BUILD_DIR / f"{src.stem}-{h.hexdigest()[:16]}.so"
 
 
 def _compile(src: Path) -> Path:

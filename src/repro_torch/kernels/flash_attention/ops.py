@@ -19,6 +19,7 @@ import math
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels._tma import map_strides, tma_ready
 from repro_torch.kernels.flash_attention.ref import reference_attention
 
 HEAD_DIMS = (16, 32, 64, 96, 128, 256)
@@ -57,24 +58,6 @@ def _entry(stem):
     return fn
 
 
-def tma_ready(x):
-    """Whether the bf16 kernel's tensor maps can address x as it lies: a
-    16-byte-aligned base, H contiguous, and the (B, S, N) strides positive
-    multiples of 8 elements (16 bytes). A dim of size 1 never steps, so
-    its stride does not count."""
-    if x.stride(3) != 1 or x.data_ptr() % 16:
-        return False
-    return all(size == 1 or (st > 0 and st % 8 == 0)
-               for size, st in zip(x.shape[:3], x.stride()[:3]))
-
-
-def _map_strides(x):
-    """x's (B, S, N) strides, with 8 for a dim of size 1, which the tensor
-    map must still be given as a multiple of 16 bytes."""
-    return [8 if size == 1 else st
-            for size, st in zip(x.shape[:3], x.stride()[:3])]
-
-
 def flash_attention_fwd(q, k, v, *, causal=True, window=None, softcap=None):
     """Forward only: q (B,S,N,H), k and v (B,T,N,H) -> (B,S,N,H)."""
     if q.device.type == "cpu":
@@ -106,7 +89,7 @@ def flash_attention_fwd(q, k, v, *, causal=True, window=None, softcap=None):
         q, k, v = (x if tma_ready(x)
                    else x.clone(memory_format=torch.contiguous_format)
                    for x in (q, k, v))
-        strides = [st for x in (q, k, v) for st in _map_strides(x)]
+        strides = [st for x in (q, k, v) for st in map_strides(x)]
     else:
         stem = _STEM
         if any(x.stride(3) != 1 for x in (q, k, v)):

@@ -1,4 +1,7 @@
-// Mamba2 SSD chunked scan, forward, for Hopper (sm_90a).
+// Mamba2 SSD chunked scan, forward, for Hopper (sm_90a), on the CUDA
+// cores: the fp32 route, and bf16 of a head dim that the tensor-core
+// kernel (ssd_fwd_sm90.cu, which takes bf16 with p a multiple of 8 up to
+// 128) does not take.
 //
 // Replaces the JAX package's Pallas TPU kernel
 //   kernels/ssd/kernel.py::ssd_bh (_ssd_kernel).
@@ -22,12 +25,13 @@
 // Bound: at the main path's shape (b=2, s=2048, h=64, p=64, n=128,
 // chunk 256, bf16) the chunked form does about 21.5 GFLOP over the
 // causal pairs j <= i only (1,024 chunk-heads x 21.0 MFLOP) against
-// about 70 MB of x, y, la and one group of B and C: 0.0218 ms at 989
-// TFLOP/s on the tensor cores against 0.0210 ms for the bytes, so
-// operations bound it, narrowly. This first version keeps every
-// product on the fp32 CUDA cores (67 TFLOP/s, 0.32 ms for the same
-// work); moving the C B^T, (.)x and state products onto wgmma is the
-// next step for it.
+// about 70 MB of x, y, la and one group of B and C. The function does
+// not depend on the chunk, and at 128 rows it takes 15.1 GFLOP, 0.0153 ms
+// at 989 TFLOP/s on the tensor cores, under the bytes' 0.0210 ms at 3.35
+// TB/s: the bytes bound it. This kernel keeps every product on the
+// fp32 CUDA cores (67 TFLOP/s, 0.32 ms for 21.5 GFLOP), which holds
+// fp32 inputs at the JAX package's 1e-5; bf16 at that shape runs on
+// ssd_fwd_sm90.cu.
 //
 // Design. The TPU kernel walks the chunks on a sequential grid axis with
 // the state in VMEM. On the card blocks run in parallel, so the chunk

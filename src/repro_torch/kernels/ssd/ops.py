@@ -2,14 +2,17 @@
 and B and C per group, (b,s,g,n), head h reading group h // (h_total//g).
 
 Differentiable through `torch.autograd.Function`: the forward is
-`ssd_fwd`, which launches the kernel in `csrc/ssd_fwd.cu` on a CUDA
-tensor (adding one to its `launches` count) and runs the plain version in
-`ref.py` on a CPU tensor. The backward recomputes the scan with the plain
-version under autograd, which is the gradient the JAX package takes
-(`jax.grad` of `ssd_reference`; its Pallas kernel has none). B and C are
-expanded to heads only inside that recompute, so autograd's sum over
-the heads of a group gives their gradients. A backward kernel is queued
-in ROADMAP.
+`ssd_fwd`, which on a CUDA tensor launches one of two kernels (adding one
+to its `launches` count) and on a CPU tensor runs the plain version in
+`ref.py`. `route` picks the kernel by dtype and head dim: bf16 with p a
+multiple of 8 up to 128 goes to `csrc/ssd_fwd_sm90.cu`, on the tensor
+cores (also counted in `sm90_launches`); fp32, and bf16 of any other p,
+to `csrc/ssd_fwd.cu`, on the CUDA cores. The backward recomputes the
+scan with the plain version under autograd, which is the gradient the
+JAX package takes (`jax.grad` of `ssd_reference`; its Pallas kernel has
+none). B and C are expanded to heads only inside that recompute, so
+autograd's sum over the heads of a group gives their gradients. A
+backward kernel is queued in ROADMAP.
 """
 from __future__ import annotations
 
@@ -18,11 +21,14 @@ import ctypes
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels._tma import map_strides, tma_ready
 from repro_torch.kernels.ssd.ref import ssd_reference
 
 STATE_DIMS = (16, 32, 64, 128)
 MAX_CHUNK = 256
-_STEM = "ssd_fwd"
+MAX_P_SM90 = 128
+_STEM = "ssd_fwd"                 # fp32 and other bf16, CUDA cores
+_STEM_SM90 = "ssd_fwd_sm90"       # bf16, tensor cores
 
 
 def _heads(t, h):
@@ -37,14 +43,24 @@ def ssd_plain(xbar, log_a, Bm, Cm, *, chunk=256):
     return ssd_reference(xbar, log_a, _heads(Bm, h), _heads(Cm, h), chunk)
 
 
-def _lib():
-    lib = _build.library(_STEM)
-    fn = lib.ssd_fwd
+def route(dtype, p):
+    """The kernel source `ssd_fwd` launches for x of this dtype and head
+    dim: the tensor-core kernel takes bf16 with p a multiple of 8 (a TMA
+    box row of whole 16-byte units) up to 128."""
+    if dtype == torch.bfloat16 and p % 8 == 0 and p <= MAX_P_SM90:
+        return _STEM_SM90
+    return _STEM
+
+
+def _entry(stem):
+    fn = getattr(_build.library(stem), stem)
     if fn.argtypes is None:
         ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        fn.argtypes = [ptr] * 5 + [i32] * 8 + [i64] * 15 + [ptr]
+        # the CUDA-core entry also takes is_bf16 and the chunk
+        n_int = 8 if stem == _STEM else 6
+        fn.argtypes = [ptr] * 5 + [i32] * n_int + [i64] * 15 + [ptr]
         fn.restype = ctypes.c_int
-    return lib
+    return fn
 
 
 def _check(xbar, log_a, Bm, Cm, chunk):
@@ -80,21 +96,33 @@ def ssd_fwd(xbar, log_a, Bm, Cm, *, chunk=256):
     _check(xbar, log_a, Bm, Cm, chunk)
     b, s, h, p = xbar.shape
     g, n = Bm.shape[2], Bm.shape[3]
-    xbar, Bm, Cm = (t if t.stride(3) == 1 else t.contiguous()
-                    for t in (xbar, Bm, Cm))
+    stem = route(xbar.dtype, p)
     y = torch.empty((b, s, h, p), dtype=xbar.dtype, device=xbar.device)
-    rc = _lib().ssd_fwd(
-        xbar.data_ptr(), log_a.data_ptr(), Bm.data_ptr(), Cm.data_ptr(),
-        y.data_ptr(), int(xbar.dtype == torch.bfloat16), b, s, h, p, g, n,
-        min(chunk, s), *xbar.stride()[:3], *log_a.stride(),
-        *Bm.stride()[:3], *Cm.stride()[:3], *y.stride()[:3],
-        _build.stream_ptr(xbar))
-    _build.check(_STEM, rc)
+    if stem == _STEM_SM90:
+        # TMA reads x, B and C as they lie, or a contiguous copy where
+        # their base or strides break its alignment; the kernel cuts the
+        # sequence into its own pieces, whatever the chunk
+        xbar, Bm, Cm = (t if tma_ready(t)
+                        else t.clone(memory_format=torch.contiguous_format)
+                        for t in (xbar, Bm, Cm))
+        args = (b, s, h, p, g, n, *map_strides(xbar), *log_a.stride(),
+                *map_strides(Bm), *map_strides(Cm))
+    else:
+        xbar, Bm, Cm = (t if t.stride(3) == 1 else t.contiguous()
+                        for t in (xbar, Bm, Cm))
+        args = (int(xbar.dtype == torch.bfloat16), b, s, h, p, g, n,
+                min(chunk, s), *xbar.stride()[:3], *log_a.stride(),
+                *Bm.stride()[:3], *Cm.stride()[:3])
+    ptrs = (t.data_ptr() for t in (xbar, log_a, Bm, Cm, y))
+    rc = _entry(stem)(*ptrs, *args, *y.stride()[:3], _build.stream_ptr(y))
+    _build.check(stem, rc)
     ssd_fwd.launches += 1
+    ssd_fwd.sm90_launches += int(stem == _STEM_SM90)
     return y
 
 
 ssd_fwd.launches = 0
+ssd_fwd.sm90_launches = 0
 
 
 class _SSD(torch.autograd.Function):

@@ -181,9 +181,10 @@ def _ssd_inputs(gen, b, s, h, p, g, n, dtype=torch.float32):
     return x, la, B, C
 
 
-# (b, s, h, p, g, n, chunk): ragged S, chunks of 8, 64 and 256, one and
-# two groups, every state dim, a head dim that is not a multiple of the
-# block's 32 columns; 1e-5 relative, the JAX package's own ssd bar
+# (b, s, h, p, g, n, chunk): fp32 on the CUDA-core kernel; ragged S,
+# chunks of 8, 64 and 256, one and two groups, every state dim, a head
+# dim that is not a multiple of the block's 32 columns; 1e-5 relative,
+# the JAX package's own ssd bar
 SSD_CASES = [
     (2, 64, 3, 16, 3, 16, 16),
     (1, 100, 4, 32, 2, 64, 8),
@@ -196,23 +197,139 @@ SSD_CASES = [
 @pytest.mark.parametrize("b,s,h,p,g,n,chunk", SSD_CASES)
 def test_ssd_kernel_matches_plain(gen, b, s, h, p, g, n, chunk):
     x, la, B, C = _ssd_inputs(gen, b, s, h, p, g, n)
-    before = sd.ssd_fwd.launches
+    before = (sd.ssd_fwd.launches, sd.ssd_fwd.sm90_launches)
     y = sd.ssd_fwd(x, la, B, C, chunk=chunk)
     torch.cuda.synchronize()
-    assert sd.ssd_fwd.launches == before + 1
+    # fp32 runs on the CUDA-core kernel
+    assert (sd.ssd_fwd.launches, sd.ssd_fwd.sm90_launches) == (
+        before[0] + 1, before[1])
     want, _ = sd.ssd_plain(x, la, B, C, chunk=chunk)
     assert y.dtype == x.dtype and y.shape == want.shape
     assert _rel_err(y, want) < 1e-5
 
 
+def _ssd_bf16_inputs(gen, b, s, h, p, g, n, la_scale=0.1):
+    x, la, B, C = _ssd_inputs(gen, b, s, h, p, g, n, torch.bfloat16)
+    return x, la * (la_scale / 0.1), B, C
+
+
+def _assert_ssd_rounds_once(y, x, la, B, C, chunk=256):
+    """bf16 `y` within one bf16 rounding of the plain version in fp32 on
+    the same bf16 inputs: the kernels compute in fp32 (the tensor-core
+    one carries its three fp32 operands as bf16 hi + lo) and round each
+    output to bf16 once, so it lies within half a bf16 ulp (at most 2^-8
+    of itself) of the fp32 result, plus fp32 rounding."""
+    want, _ = sd.ssd_plain(x.float(), la, B.float(), C.float(), chunk=chunk)
+    err = (y.float() - want).abs()
+    bar = 2.0 ** -8 * want.abs() + 1e-5 * want.abs().max()
+    assert bool((err <= bar).all()), (err / bar).max().item()
+
+
 def test_ssd_kernel_bf16_at_the_main_shape(gen):
     """mamba2-1.3b's layer: b=2, s=2048, 64 heads x 64, one group of 128;
-    bf16 inputs and output, 2e-2 of the largest output."""
+    bf16 inputs and output on the tensor-core kernel, 2e-2 of the largest
+    output against the plain version in bf16, and one bf16 rounding
+    against it in fp32."""
     x, la, B, C = _ssd_inputs(gen, 2, 2048, 64, 64, 1, 128, torch.bfloat16)
+    before = sd.ssd_fwd.sm90_launches
     y = sd.ssd_fwd(x, la, B, C, chunk=256)
+    torch.cuda.synchronize()
+    assert sd.ssd_fwd.sm90_launches == before + 1
     want, _ = sd.ssd_plain(x, la, B, C, chunk=256)
     assert y.dtype == torch.bfloat16
     assert _rel_err(y, want) < 2e-2
+    _assert_ssd_rounds_once(y, x, la, B, C)
+
+
+def test_ssd_bf16_rounds_once_at_strong_decays(gen):
+    """The main shape at mamba2-like decays, log a = -|z|: cs falls by
+    about a hundred over a piece of 128 rows."""
+    x, la, B, C = _ssd_bf16_inputs(gen, 2, 2048, 64, 64, 1, 128, 1.0)
+    y = sd.ssd_fwd(x, la, B, C, chunk=256)
+    _assert_ssd_rounds_once(y, x, la, B, C)
+
+
+# (b, s, h, p, g, n, chunk, log-decay scale): bf16 on the tensor-core
+# kernel at every state dim, p of 24, 32, 40, 64, 96 and 128 (padded to
+# 64 or 128 by TMA's zero fill), one, two and three groups, S of 77 to
+# 1000 (no multiple of its 128-row pieces), decays of 0.1 to 1; each held
+# to one bf16 rounding of the fp32 plain version
+SSD_BF16_CASES = [
+    (2, 300, 4, 64, 1, 128, 256, 0.1),
+    (1, 520, 2, 32, 1, 16, 64, 1.0),
+    (2, 200, 4, 128, 2, 32, 256, 0.1),
+    (1, 77, 3, 64, 3, 64, 16, 1.0),
+    (1, 1000, 4, 128, 1, 128, 256, 1.0),
+    (2, 129, 2, 96, 2, 64, 128, 0.1),
+    (1, 333, 2, 24, 1, 128, 8, 0.1),
+    (1, 256, 8, 64, 2, 16, 256, 0.5),
+    (1, 64, 2, 40, 1, 32, 32, 1.0),
+    (2, 450, 2, 128, 1, 64, 256, 0.5),
+]
+
+
+@pytest.mark.parametrize("b,s,h,p,g,n,chunk,la_scale", SSD_BF16_CASES)
+def test_ssd_bf16_kernel_rounds_once(gen, b, s, h, p, g, n, chunk, la_scale):
+    x, la, B, C = _ssd_bf16_inputs(gen, b, s, h, p, g, n, la_scale)
+    before = sd.ssd_fwd.sm90_launches
+    y = sd.ssd_fwd(x, la, B, C, chunk=chunk)
+    torch.cuda.synchronize()
+    assert sd.ssd_fwd.sm90_launches == before + 1
+    assert y.dtype == torch.bfloat16 and y.shape == x.shape
+    _assert_ssd_rounds_once(y, x, la, B, C, chunk)
+
+
+def test_ssd_bf16_head_dim_off_the_tensor_maps_runs_on_cuda_cores(gen):
+    """bf16 with p = 20, no multiple of 8, goes to the CUDA-core kernel,
+    which also rounds its fp32 result once."""
+    x, la, B, C = _ssd_bf16_inputs(gen, 1, 200, 2, 20, 1, 64)
+    before = (sd.ssd_fwd.launches, sd.ssd_fwd.sm90_launches)
+    y = sd.ssd_fwd(x, la, B, C, chunk=64)
+    torch.cuda.synchronize()
+    assert (sd.ssd_fwd.launches, sd.ssd_fwd.sm90_launches) == (
+        before[0] + 1, before[1])
+    _assert_ssd_rounds_once(y, x, la, B, C, 64)
+
+
+def test_ssd_bf16_reads_packed_views(gen):
+    """x, B and C as views of one packed bf16 tensor, as `mamba2_mix`
+    slices B and C out of the convolution's output: the tensor maps read
+    them through their strides, with no copy."""
+    b, s, h, p, n = 2, 300, 4, 64, 128
+    packed = _randn(gen, b, s, h * p + 2 * n, dtype=torch.bfloat16,
+                    scale=0.4)
+    x = packed[..., :h * p].reshape(b, s, h, p)
+    B = packed[..., h * p:h * p + n].reshape(b, s, 1, n)
+    C = packed[..., h * p + n:].reshape(b, s, 1, n)
+    assert all(sd.tma_ready(t) for t in (x, B, C))
+    la = -_randn(gen, b, s, h).abs() * 0.5
+    y = sd.ssd_fwd(x, la, B, C, chunk=256)
+    _assert_ssd_rounds_once(y, x, la, B, C)
+
+
+def test_ssd_bf16_copies_a_misaligned_input(gen):
+    """A bf16 x whose base address is 2 bytes off 16: TMA cannot read it
+    as it lies, so the wrapper copies it, and the result is right."""
+    b, s, h, p, n = 1, 200, 2, 64, 64
+    buf = _randn(gen, b * s * h * p + 1, dtype=torch.bfloat16, scale=0.5)
+    x = buf[1:].view(b, s, h, p)
+    _, la, B, C = _ssd_bf16_inputs(gen, b, s, h, p, 1, n)
+    assert x.is_contiguous() and not sd.tma_ready(x)
+    before = sd.ssd_fwd.sm90_launches
+    y = sd.ssd_fwd(x, la, B, C, chunk=64)
+    assert sd.ssd_fwd.sm90_launches == before + 1
+    _assert_ssd_rounds_once(y, x, la, B, C, 64)
+
+
+def test_ssd_bf16_copies_an_expanded_group(gen):
+    """B and C expanded from one group to two (a stride of 0): the
+    wrapper copies them for the tensor maps."""
+    b, s, h, p, n = 2, 150, 4, 32, 32
+    x, la, B, C = _ssd_bf16_inputs(gen, b, s, h, p, 1, n)
+    B2, C2 = B.expand(b, s, 2, n), C.expand(b, s, 2, n)
+    assert not sd.tma_ready(B2)
+    y = sd.ssd_fwd(x, la, B2, C2, chunk=32)
+    _assert_ssd_rounds_once(y, x, la, B2.contiguous(), C2.contiguous(), 32)
 
 
 def test_ssd_kernel_reads_strided_and_expanded_inputs(gen):

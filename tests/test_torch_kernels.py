@@ -7,9 +7,10 @@ recurrence (gradients against `jax.vjp` of `ssd_reference`), and the
 RG-LRU scan against the Pallas kernel and `rglru_scan_ref` (its
 reverse-mode backward against `jax.vjp` of `rglru_scan_ref`). The bf16
 tensor-core flash kernel's arithmetic (key tiles in order, P as bf16 hi
-+ lo) is emulated in plain PyTorch and held to JAX's fp32 reference at
-one bf16 rounding, and its wrapper's layout check is tested on CPU
-tensors.
++ lo) and the bf16 tensor-core SSD kernel's (128-row pieces, 64-row
+tiles in order, M, the state and dec x as bf16 hi + lo) are emulated in
+plain PyTorch and held to JAX's fp32 reference at one bf16 rounding, and
+the wrappers' layout checks and the SSD route are tested on CPU tensors.
 
 On the CPU each wrapper runs its plain version; the CUDA kernels are
 held to the same plain versions on the card (`chip_smoke.py` and
@@ -33,6 +34,7 @@ from repro.kernels.rglru.ref import rglru_scan_ref as jax_rglru_ref
 from repro.kernels.ssd.ops import ssd as jax_ssd
 from repro.models.ssm import ssd_reference as jax_ssd_ref
 from repro_torch.common.bridge import _to_numpy, _to_tensor
+from repro_torch.kernels import _build
 from repro_torch.kernels.flash_attention import ops as fa
 from repro_torch.kernels.grad_quant import ops as gq
 from repro_torch.kernels.rglru import ops as rg
@@ -200,6 +202,29 @@ class TestTensorCoreFlashArithmetic:
         H contiguous, other strides multiples of 16 bytes; a size-1 dim's
         stride never counts) and which the wrapper copies first."""
         assert fa.tma_ready(make()) is ready
+
+
+class TestBuild:
+    def test_library_name_follows_the_included_headers(self, tmp_path):
+        """A library is named after its source and every header it
+        includes with quotes, directly or through another header, so an
+        edited header rebuilds it."""
+        (tmp_path / "csrc").mkdir()
+        src = tmp_path / "csrc" / "k.cu"
+        src.write_text('#include <cuda.h>\n#include "../h.cuh"\n')
+        hdr, inner = tmp_path / "h.cuh", tmp_path / "g.cuh"
+        hdr.write_text('#pragma once\n  #  include "g.cuh"\n')
+        inner.write_text("int a;\n")
+        assert _build._headers(src) == [hdr.resolve(), inner.resolve()]
+        before = _build._library_path(src)
+        assert _build._library_path(src) == before
+        inner.write_text("int b;\n")
+        assert _build._library_path(src) != before
+
+    def test_tensor_core_sources_share_one_header(self):
+        for stem in ("flash_attention_fwd_sm90", "ssd_fwd_sm90"):
+            headers = _build._headers(_build.sources()[stem])
+            assert [h.name for h in headers] == ["sm90.cuh"]
 
 
 def _tie_row():
@@ -373,6 +398,146 @@ class TestSSD:
         torch.testing.assert_close(y, sd.ssd_plain(*ins, chunk=8)[0],
                                    atol=0, rtol=0)
         assert sd.ssd_fwd.launches == before
+
+
+def _hi_lo(t, lo=True):
+    """t as bf16 hi + bf16 lo (or hi alone), summed back in fp32."""
+    hi = t.to(torch.bfloat16).float()
+    return hi + (t - hi).to(torch.bfloat16).float() if lo else hi
+
+
+def _ssd_sm90_arithmetic(x, la, B, C, split=("m", "state", "decx"),
+                         piece=128, tile=64):
+    """The bf16 tensor-core SSD kernel's arithmetic in plain PyTorch on
+    the CPU: pieces of 128 rows whatever the chunk, the cumulative log
+    decay per piece, Y = exp(cs_i) C state^T + sum over 64-row tiles in
+    order of M x_t, M = (C B_t^T) o exp(cs_i - cs_j) where j <= i, state
+    <- exp(cs_end) state + (dec x)^T B, fp32 sums, one bf16 rounding of
+    y. The operands named in `split` (M, the state, dec x) enter their
+    products as bf16 hi + lo, the others as bf16 hi alone. x, B and C:
+    fp32 holding bf16 values, B and C per head."""
+    b, s, h, p = x.shape
+    y = torch.zeros(b, s, h, p)
+    state = torch.zeros(b, h, p, B.shape[-1])
+    for r0 in range(0, s, piece):
+        xs, Bs, Cs = (t[:, r0:r0 + piece].transpose(1, 2) for t in (x, B, C))
+        cs = torch.cumsum(la[:, r0:r0 + piece].transpose(1, 2), -1)
+        q = cs.shape[-1]
+        st = _hi_lo(state, "state" in split)
+        yp = (Cs @ st.transpose(-1, -2)) * torch.exp(cs)[..., None]
+        i = torch.arange(q)[:, None]
+        for t0 in range(0, q, tile):
+            ok = torch.arange(t0, min(t0 + tile, q))[None, :] <= i
+            seg = torch.where(
+                ok, cs[..., :, None] - cs[..., None, t0:t0 + tile], 0.0)
+            s_t = Cs @ Bs[:, :, t0:t0 + tile].transpose(-1, -2)
+            m = torch.where(ok, s_t * torch.exp(seg), 0.0)
+            yp = yp + _hi_lo(m, "m" in split) @ xs[:, :, t0:t0 + tile]
+        cs_end = cs[..., -1]
+        dx = _hi_lo(torch.exp(cs_end[..., None] - cs)[..., None] * xs,
+                    "decx" in split)
+        state = (state * torch.exp(cs_end)[..., None, None]
+                 + dx.transpose(-1, -2) @ Bs)
+        y[:, r0:r0 + piece] = yp.transpose(1, 2)
+    return y.to(torch.bfloat16)
+
+
+def _ssd_bf16_case(la_scale):
+    """b=1, s=520 (four pieces and a ragged one), 4 heads x 64, one
+    group of 128: the emulation's inputs (bf16 values in fp32, B and C
+    per head) and JAX's fp32 reference on them at chunk 256."""
+    rng = np.random.RandomState(20)
+    x, la, B, C = _ssd_arrays(rng, 1, 520, 4, 64, 128, g=1, la_scale=la_scale)
+    x, B, C = (np.asarray(jnp.asarray(a, jnp.bfloat16), np.float32)
+               for a in (x, B, C))
+    B, C = _heads(B, 4), _heads(C, 4)
+    want, _ = jax_ssd_ref(x, la, B, C, chunk=256)
+    return [torch.from_numpy(a) for a in (x, la, B, C)], np.asarray(want)
+
+
+def _share_of_bar(got, want):
+    """The worst element's |error| over the one-rounding bar, and how
+    many elements lie over it."""
+    err = np.abs(got.float().numpy() - want)
+    bar = 2.0 ** -8 * np.abs(want) + 1e-5 * np.abs(want).max()
+    return (err / bar).max(), int((err > bar).sum())
+
+
+class TestTensorCoreSSDArithmetic:
+    """What the bf16 SSD kernel computes, on the CPU; the kernel itself is
+    held to the same bar on the card (tests/test_torch_cuda.py)."""
+
+    @pytest.mark.parametrize("la_scale", [0.1, 1.0])
+    def test_hi_lo_operands_round_once_against_jax_reference(self, la_scale):
+        """M, the state and dec x each carried as bf16 hi + lo keep the
+        output within one bf16 rounding of JAX's fp32 reference on the
+        same bf16 inputs, at weak and at mamba2-like decays."""
+        ins, want = _ssd_bf16_case(la_scale)
+        worst, over = _share_of_bar(_ssd_sm90_arithmetic(*ins), want)
+        assert over == 0, worst
+
+    @pytest.mark.parametrize("hi_only", ["m", "state", "decx"])
+    def test_one_operand_as_hi_alone_breaks_the_bar(self, hi_only):
+        """Rounding any one of the three fp32 operands once to bf16 puts
+        outputs over the one-rounding bar: each needs its lo term."""
+        ins, want = _ssd_bf16_case(0.1)
+        split = tuple(o for o in ("m", "state", "decx") if o != hi_only)
+        worst, over = _share_of_bar(_ssd_sm90_arithmetic(*ins, split=split),
+                                    want)
+        assert over > 0 and worst > 2, (worst, over)
+
+    def test_pieces_do_not_depend_on_the_chunk(self):
+        """The kernel ignores the chunk: its 128-row pieces against the
+        reference at chunks of 104, 260 and 520 rows (chunks that divide
+        s, as the JAX reference needs), every operand split."""
+        ins, _ = _ssd_bf16_case(1.0)
+        got = _ssd_sm90_arithmetic(*ins, piece=128).float().numpy()
+        for chunk in (104, 260, 520):
+            want, _ = jax_ssd_ref(*(a.numpy() for a in ins), chunk=chunk)
+            worst, over = _share_of_bar(torch.from_numpy(got),
+                                        np.asarray(want))
+            assert over == 0, (chunk, worst)
+
+    @pytest.mark.parametrize("dtype,p,stem", [
+        (torch.bfloat16, 64, "ssd_fwd_sm90"),
+        (torch.bfloat16, 8, "ssd_fwd_sm90"),
+        (torch.bfloat16, 24, "ssd_fwd_sm90"),
+        (torch.bfloat16, 128, "ssd_fwd_sm90"),
+        (torch.bfloat16, 20, "ssd_fwd"), (torch.bfloat16, 136, "ssd_fwd"),
+        (torch.float32, 64, "ssd_fwd"), (torch.float32, 128, "ssd_fwd")])
+    def test_route_by_dtype_and_head_dim(self, dtype, p, stem):
+        """bf16 with p a multiple of 8 up to 128 goes to the tensor-core
+        kernel; fp32 and other bf16 head dims to the CUDA-core kernel."""
+        assert sd.route(dtype, p) == stem
+
+    def test_mamba2_mix_hands_over_tma_ready_views(self, monkeypatch):
+        """At mamba2-1.3b's width, `mamba2_mix` hands the op B and C as
+        views of the convolution's output, 256 bytes apart at a row stride
+        of 8704 bytes, and x as a fresh tensor: all as TMA takes them, so
+        the main path makes no copy."""
+        from repro_torch import configs
+        from repro_torch.models import ssm
+
+        cfg = configs.get_config("mamba2-1.3b")
+        seen = {}
+
+        def capture(xbar, log_a, Bm, Cm, *, chunk):
+            seen.update(x=xbar, B=Bm, C=Cm, chunk=chunk)
+            return torch.zeros_like(xbar), None
+
+        monkeypatch.setattr(ssm.ssd_ops, "ssd", capture)
+        params = {k: torch.zeros(spec.shape,
+                                 dtype=spec.dtype or cfg.param_torch_dtype)
+                  for k, spec in ssm.mamba2_schema(cfg).items()}
+        x = torch.zeros(1, 4, cfg.d_model, dtype=cfg.activation_dtype)
+        ssm.mamba2_mix(params, x, cfg)
+        xb, B, C = seen["x"], seen["B"], seen["C"]
+        assert xb.dtype == B.dtype == C.dtype == torch.bfloat16
+        assert sd.route(xb.dtype, xb.shape[-1]) == "ssd_fwd_sm90"
+        assert all(sd.tma_ready(t) for t in (xb, B, C))
+        assert B.stride(1) * 2 == C.stride(1) * 2 == 8704
+        assert C.data_ptr() - B.data_ptr() == 256
+        assert B.shape == C.shape == (1, 4, 1, 128)
 
 
 def _rglru_arrays(rng, B, S, W, la_scale=0.2):

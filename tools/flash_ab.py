@@ -1,17 +1,20 @@
 #!/usr/bin/env python3
-"""Time the bf16 flash-attention forward, and one FL round of each main
-path that runs it, for one checkout of the port on one CUDA card.
+"""Time a bf16 tensor-core kernel, and one FL round of each main path that
+runs it, for one checkout of the port on one CUDA card.
 
-    python3 tools/flash_ab.py [--src DIR] [--label NAME]
+    python3 tools/flash_ab.py [--kernel flash|ssd] [--src DIR] [--label NAME]
 
 DIR is the `src` directory of the checkout to time (default: this
-checkout's). The shapes, paths and timing are `chip_smoke.py`'s: the
-kernel's mean milliseconds (CUDA events) at phi3-mini-3.8b's shape and
-at recurrentgemma-2b's local attention, and `measure_round_s` of those
-two main paths (int8 arm). Prints one JSON line with them and the card's
-name and power limit as `nvidia-smi` gives them. To compare two
-checkouts on one card, run it on each in turns (A, B, B, A) on that
-card. It needs a card and exits non-zero without one.
+checkout's). The shapes, paths and timing are `chip_smoke.py`'s. With
+`--kernel flash` (the default): the bf16 flash-attention forward's mean
+milliseconds (CUDA events) at phi3-mini-3.8b's shape and at
+recurrentgemma-2b's local attention, and `measure_round_s` of those two
+main paths (int8 arm). With `--kernel ssd`: the bf16 SSD forward at
+mamba2-1.3b's layer (`SSD_MAIN`) and the mamba2-1.3b round. Prints one
+JSON line with them and the card's name and power limit as `nvidia-smi`
+gives them. To compare two checkouts on one card, run it on each in
+turns (A, B, B, A) on that card. It needs a card and exits non-zero
+without one.
 """
 import argparse
 import dataclasses
@@ -27,8 +30,30 @@ sys.path.insert(0, ROOT)
 import chip_smoke as smoke  # noqa: E402
 
 
+def _flash_calls(gen):
+    """Each flash shape's kernel call on fresh bf16 inputs, by path."""
+    from repro_torch.kernels.flash_attention import ops as fa
+    shapes = {"phi3-mini-3.8b": (smoke.MAIN_B, smoke.MAIN_S, smoke.MAIN_N,
+                                 smoke.MAIN_H, None),
+              "recurrentgemma-2b": smoke.FLASH_RG}
+    for arch, (B, S, N, H, window) in shapes.items():
+        q, k, v = (smoke._randn(gen, B, S, N, H, dtype=torch.bfloat16)
+                   for _ in range(3))
+        yield arch, lambda: fa.flash_attention_fwd(q, k, v, window=window)
+
+
+def _ssd_calls(gen):
+    """The ssd kernel call at mamba2-1.3b's layer on fresh bf16 inputs."""
+    from repro_torch.kernels.ssd import ops as sd
+    b, s, h, p, g, n, chunk = smoke.SSD_MAIN
+    x, la, B, C = smoke._ssd_inputs(gen, b, s, h, p, g, n, torch.bfloat16)
+    yield "mamba2-1.3b", lambda: sd.ssd_fwd(x, la, B, C, chunk=chunk)
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    parser.add_argument("--kernel", choices=("flash", "ssd"),
+                        default="flash")
     parser.add_argument("--src", default=os.path.join(ROOT, "src"))
     parser.add_argument("--label", default="")
     args = parser.parse_args()
@@ -37,23 +62,16 @@ def main():
     sys.path.insert(0, os.path.abspath(args.src))
     from repro_torch import configs
     from repro_torch.fl.training import TorchTrainerHooks
-    from repro_torch.kernels.flash_attention import ops as fa
 
     gen = torch.Generator(device="cuda").manual_seed(0)
-    shapes = {"phi3-mini-3.8b": (smoke.MAIN_B, smoke.MAIN_S, smoke.MAIN_N,
-                                 smoke.MAIN_H, None),
-              "recurrentgemma-2b": smoke.FLASH_RG}
-    result = {"label": args.label, "src": args.src, "kernel_ms": {},
-              "round_s": {}}
-    for arch, (B, S, N, H, window) in shapes.items():
-        q, k, v = (smoke._randn(gen, B, S, N, H, dtype=torch.bfloat16)
-                   for _ in range(3))
-        result["kernel_ms"][arch] = smoke._time_ms(
-            lambda: fa.flash_attention_fwd(q, k, v, window=window),
-            iters=20, warmup=3)
-        del q, k, v
+    calls = _flash_calls if args.kernel == "flash" else _ssd_calls
+    result = {"label": args.label, "src": args.src, "kernel": args.kernel,
+              "kernel_ms": {}, "round_s": {}}
+    for arch, call in calls(gen):
+        result["kernel_ms"][arch] = smoke._time_ms(call, iters=20, warmup=3)
+    torch.cuda.empty_cache()
     for arch, layers, batch, seq, _ in smoke.PATHS:
-        if arch not in shapes:
+        if arch not in result["kernel_ms"]:
             continue
         cfg = dataclasses.replace(configs.get_config(arch),
                                   num_layers=layers)

@@ -20,8 +20,10 @@ calls it), and one round of each model. After the build it reads the
 SASS of the two tensor-core libraries, bf16 flash attention and the
 bf16 SSD scan, and fails unless every head dim's and every state dim's
 instance runs its products on the tensor cores (HGMMA) and ptxas
-reports no spill in either. mamba2's ssd launches must all go to the
-tensor-core kernel.
+reports no spill in either, nor in the RG-LRU scan's library. mamba2's
+ssd launches must all go to the tensor-core kernel, and recurrentgemma's
+backward must run the fused RG-LRU backward, never the reverse scan
+alone.
 
 Any failure exits non-zero. Without a CUDA device, or outside a
 checkout, it exits non-zero before printing any result. The last two
@@ -70,6 +72,7 @@ FLASH_RG_ROW = "flash_attention_fwd@recurrentgemma-2b"
 FLASH_SM90 = ("src/repro_torch/kernels/flash_attention/csrc/"
               "flash_attention_fwd_sm90.cu")
 SSD_SM90 = "src/repro_torch/kernels/ssd/csrc/ssd_fwd_sm90.cu"
+RGLRU_SRC = "src/repro_torch/kernels/rglru/csrc/rglru_scan.cu"
 # rows of the pieces that ssd_fwd_sm90.cu cuts the sequence into, whatever
 # chunk the caller names
 SSD_PIECE = 128
@@ -86,12 +89,17 @@ def _check(cond, msg):
 
 
 def _time_ms(fn, iters=10, warmup=2):
-    """Mean device milliseconds of `fn` over `iters` runs, CUDA events."""
+    """Mean device milliseconds of `fn` over `iters` runs, CUDA events.
+    The runs are queued behind a sleep kernel of about 50 ms, so the card
+    runs them back to back and the host's time to issue a short kernel
+    stays out of its time (a run the host takes longer than that to issue,
+    such as a plain version's loop, still counts the host's time)."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(100_000_000)
     start.record()
     for _ in range(iters):
         fn()
@@ -139,12 +147,14 @@ def _counters():
     return {"flash_attention_fwd": fa.flash_attention_fwd,
             "quantize": gq.quantize, "dequantize": gq.dequantize,
             "ssd_fwd": sd.ssd_fwd, "rglru_scan_fwd": rg.rglru_scan_fwd,
-            "rglru_scan_reverse": rg.rglru_scan_reverse}
+            "rglru_scan_reverse": rg.rglru_scan_reverse,
+            "rglru_scan_bwd": rg.rglru_scan_bwd}
 
 
 def _kernel_name(mangled):
-    """A kernel's name and integer template arguments from its mangled
-    name: `flash_fwd_sm90_kernel<96,128>`."""
+    """A kernel's name and integer (and int or long long) template
+    arguments from its mangled name: `flash_fwd_sm90_kernel<96,128>`,
+    `rglru_scan_kernel<2,12,int>`."""
     pos = 3 if mangled.startswith("_ZN") else 2
     while True:
         m = re.match(r"\d+", mangled[pos:])
@@ -154,10 +164,12 @@ def _kernel_name(mangled):
         pos += len(m.group())
         ident, pos = mangled[pos:pos + size], pos + size
         if ident.endswith("kernel"):
-            args = re.match(r"I((?:Li-?\d+E)+)E", mangled[pos:])
+            args = re.match(r"I((?:Li-?\d+E)+)([ix]?)E", mangled[pos:])
             if args is None:
                 return ident
             ints = re.findall(r"Li(-?\d+)E", args.group(1))
+            if args.group(2):
+                ints.append({"i": "int", "x": "long long"}[args.group(2)])
             return f"{ident}<{','.join(ints)}>"
 
 
@@ -192,9 +204,10 @@ def _check_hgmma():
     """Every head dim's instance of the bf16 flash library, and every
     instance of the bf16 ssd library (each state dim, p up to 64 and up
     to 128), has wgmma (HGMMA) instructions in its SASS, and ptxas
-    reports no spill in either library."""
+    reports no spill in either library, nor in the rglru library."""
     from repro_torch.kernels import _build
     from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.kernels.rglru import ops as rg
     from repro_torch.kernels.ssd import ops as sd
     for stem, dims_want, what in [(fa._STEM_SM90, fa.HEAD_DIMS, "head"),
                                   (sd._STEM_SM90, sd.STATE_DIMS, "state")]:
@@ -205,6 +218,7 @@ def _check_hgmma():
                f"HGMMA in the {stem} instances of {what} dims "
                f"{sorted(dims)}, want {list(dims_want)}, each instance: "
                f"{counts}")
+    for stem in (fa._STEM_SM90, sd._STEM_SM90, rg._STEM):
         spills = [line for line in _ptxas_lines(_build.build_log(stem))
                   if re.search(r"\b[1-9]\d* bytes spill", line)]
         _check(not spills, f"{stem} spills: {spills}")
@@ -393,22 +407,41 @@ def _check_ssd(gen, errs):
 
 
 def _check_rglru(gen, errs):
+    """Forward and reverse against their plain versions, and the fused
+    backward against the autograd gradient of the plain forward, each at
+    1e-5 of the largest reference entry; at recurrentgemma's layer and at
+    ragged shapes (S of 1, under one segment, over several rounds of a
+    cluster)."""
     from repro_torch.kernels.rglru import ops as rg
-    for shape in (RGLRU_MAIN, (2, 100, 24), (3, 37, 130)):
+    for shape in (RGLRU_MAIN, (2, 100, 24), (3, 37, 130), (2, 1, 40),
+                  (1, 5000, 40)):
         la, u = _rglru_inputs(gen, *shape)
-        h, g = rg.rglru_scan_fwd(la, u), rg.rglru_scan_reverse(la, u)
-        torch.cuda.synchronize()
+        gh = _randn(gen, *shape)
         h_ref = rg.rglru_scan_ref(la, u)
+        h, g = rg.rglru_scan_fwd(la, u), rg.rglru_scan_reverse(la, u)
+        dla, db = rg.rglru_scan_bwd(la, h_ref, gh)
+        torch.cuda.synchronize()
         g_ref = rg.rglru_scan_reverse_ref(la, u)
-        rel_h, rel_g = _rel_err(h, h_ref), _rel_err(g, g_ref)
-        _check(rel_h <= 1e-5 and rel_g <= 1e-5,
-               f"rglru {shape}: relative error forward {rel_h}, reverse "
-               f"{rel_g}")
+        la_, u_ = (x.clone().requires_grad_() for x in (la, u))
+        dla_ref, db_ref = torch.autograd.grad(rg.rglru_scan_ref(la_, u_),
+                                              (la_, u_), gh)
+        rels = {name: (got - want).abs().max().item()
+                / max(want.abs().max().item(), 1e-30)
+                for name, got, want in [("forward", h, h_ref),
+                                        ("reverse", g, g_ref),
+                                        ("dlog_a", dla, dla_ref),
+                                        ("db", db, db_ref)]}
+        _check(max(rels.values()) <= 1e-5,
+               f"rglru {shape}: relative errors {rels}")
         if shape == RGLRU_MAIN:
             errs["rglru_scan_fwd"] = (h - h_ref).abs().max().item()
             errs["rglru_scan_reverse"] = (g - g_ref).abs().max().item()
-        print(f"[kernels] rglru fp32 {shape}: forward {rel_h:.3e}, reverse "
-              f"{rel_g:.3e} of max |ref| (tolerance 1e-5)")
+            errs["rglru_scan_bwd"] = max((dla - dla_ref).abs().max().item(),
+                                         (db - db_ref).abs().max().item())
+        print(f"[kernels] rglru fp32 {shape}: forward {rels['forward']:.3e}, "
+              f"reverse {rels['reverse']:.3e} of max |ref|; fused backward "
+              f"dlog_a {rels['dlog_a']:.3e}, db {rels['db']:.3e} of max "
+              f"|autograd of the plain forward| (tolerance 1e-5)")
     la, u = _rglru_inputs(gen, 2, 200, 40)
     la.requires_grad_()
     u.requires_grad_()
@@ -433,9 +466,9 @@ def _play_rounds(hooks, first_round, n_rounds):
 def _expected_launches(cfg, n_leaves):
     """What one fp32 round and one int8 round of `cfg` launch: a layer's
     forward kernels once a step, twice in the stacked blocks under remat
-    (the forward and the recompute), the RG-LRU reverse scan once a step
-    in the backward, and the codec on every leaf of every participant's
-    delta on the int8 arm."""
+    (the forward and the recompute), the RG-LRU fused backward once a
+    step in the backward (the reverse scan alone never), and the codec
+    on every leaf of every participant's delta on the int8 arm."""
     steps = 2 * len(CLIENTS) * LOCAL_STEPS
 
     def layers(*kinds, fwd=True):
@@ -448,7 +481,8 @@ def _expected_launches(cfg, n_leaves):
             "dequantize": len(CLIENTS) * n_leaves,
             "ssd_fwd": layers("mamba2"),
             "rglru_scan_fwd": layers("rglru"),
-            "rglru_scan_reverse": layers("rglru", fwd=False)}
+            "rglru_scan_reverse": 0,
+            "rglru_scan_bwd": layers("rglru", fwd=False)}
 
 
 def phase_main_path(arch, layers, batch, seq, may_stay):
@@ -708,20 +742,26 @@ def phase_times(gen, path_launches, errs, deltas):
         bound_ms=bound, bound_by=by, library_ms=None))
 
     # the RG-LRU scan at recurrentgemma-2b's layer, both modes: read la
-    # and the input, write the output, one fused multiply-add a step
+    # and the input, write the output, one fused multiply-add a step; the
+    # fused backward reads la, gh and h and writes dlog_a and db, a fused
+    # multiply-add and two multiplies a step
     la, u = _rglru_inputs(gen, *RGLRU_MAIN)
-    bound, by = _bound_ms(3 * u.numel() * 4, 2.0 * u.numel(), torch.float32)
-    for name, fn, plain_fn in [
-            ("rglru_scan_fwd", rg.rglru_scan_fwd, rg.rglru_scan_ref),
-            ("rglru_scan_reverse", rg.rglru_scan_reverse,
-             rg.rglru_scan_reverse_ref)]:
+    gh = _randn(gen, *RGLRU_MAIN)
+    h = rg.rglru_scan_fwd(la, u)
+    n = u.numel()
+    for name, fn, plain_fn, arrays, ops in [
+            ("rglru_scan_fwd", lambda: rg.rglru_scan_fwd(la, u),
+             lambda: rg.rglru_scan_ref(la, u), 3, 2.0),
+            ("rglru_scan_reverse", lambda: rg.rglru_scan_reverse(la, u),
+             lambda: rg.rglru_scan_reverse_ref(la, u), 3, 2.0),
+            ("rglru_scan_bwd", lambda: rg.rglru_scan_bwd(la, h, gh),
+             lambda: rg.rglru_scan_bwd_ref(la, h, gh), 5, 4.0)]:
+        bound, by = _bound_ms(arrays * n * 4, ops * n, torch.float32)
         rows.append(dict(
-            name=name, route="cuda",
-            source="src/repro_torch/kernels/rglru/csrc/rglru_scan.cu",
+            name=name, route="cuda", source=RGLRU_SRC,
             replaces="src/repro/kernels/rglru/kernel.py:54",
             launches=launches[name], max_abs_err=errs[name],
-            ms=_time_ms(lambda: fn(la, u)),
-            plain_ms=_time_ms(lambda: plain_fn(la, u), iters=3),
+            ms=_time_ms(fn), plain_ms=_time_ms(plain_fn, iters=3),
             bound_ms=bound, bound_by=by, library_ms=None))
 
     for r in rows:

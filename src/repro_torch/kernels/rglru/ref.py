@@ -1,5 +1,6 @@
-"""Plain PyTorch versions of the RG-LRU linear recurrence and of its
-reverse (the CPU path, and what the kernel is held to on the card).
+"""Plain PyTorch versions of the RG-LRU linear recurrence, of its
+reverse and of its backward (the CPU path, and what the kernel is held to
+on the card).
 
 Both walk the sequence one step at a time in fp32: an oracle independent
 of the kernel's chunking, and free of the overflow of a cumulative sum in
@@ -9,6 +10,7 @@ steps at recurrentgemma's decays.
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 
 def rglru_scan_ref(log_a, b):
@@ -36,3 +38,12 @@ def rglru_scan_reverse_ref(log_a, g):
         acc = nxt * acc + u[:, t]
         out[t] = acc
     return torch.stack(out, dim=1)
+
+
+def rglru_scan_bwd_ref(log_a, h, gh):
+    """The backward of h = `rglru_scan_ref`(log_a, b) for the output
+    gradient gh: g = `rglru_scan_reverse_ref`(log_a, gh), then
+    (dlog_a, db) = (g exp(log_a) h_{t-1}, g) with h_{-1} = 0. fp32 out."""
+    g = rglru_scan_reverse_ref(log_a, gh)
+    h_prev = F.pad(h.float()[:, :-1], (0, 0, 1, 0))
+    return g * torch.exp(log_a.float()) * h_prev, g

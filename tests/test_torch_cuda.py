@@ -375,7 +375,7 @@ def _rglru_inputs(gen, B, S, W):
 
 
 # (B, S, W): recurrentgemma's layer at full width, ragged S and W, S
-# shorter than the kernel's 64 chunks; 1e-5 relative
+# shorter than one segment of the kernel's chunks; 1e-5 relative
 RGLRU_CASES = [(1, 4096, 2560), (2, 100, 24), (3, 37, 130), (1, 1000, 16)]
 
 
@@ -405,16 +405,78 @@ def test_rglru_kernel_reads_strided_inputs(gen):
 
 
 def test_rglru_backward_runs_the_reverse_kernel(gen):
+    """The autograd backward is one launch of the fused backward, the
+    kernel's reverse mode writing db and dlog_a, and nothing else."""
     la, u = _rglru_inputs(gen, 2, 200, 40)
     la.requires_grad_()
     u.requires_grad_()
     gh = _randn(gen, 2, 200, 40)
-    r0 = rg.rglru_scan_reverse.launches
-    got = torch.autograd.grad(rg.rglru_scan(la, u), (la, u), gh)
-    assert rg.rglru_scan_reverse.launches == r0 + 1
+    h = rg.rglru_scan(la, u)
+    b0, r0 = rg.rglru_scan_bwd.launches, rg.rglru_scan_reverse.launches
+    got = torch.autograd.grad(h, (la, u), gh)
+    assert (rg.rglru_scan_bwd.launches, rg.rglru_scan_reverse.launches) \
+        == (b0 + 1, r0)
     want = torch.autograd.grad(rg.rglru_scan_ref(la, u), (la, u), gh)
     for a, b in zip(got, want):
         assert _rel_err(a, b) < 1e-5
+
+
+def _assert_rglru_bwd(la, u, gh, got):
+    """The fused backward's (dlog_a, db) for h = the scan of (la, u)
+    within 1e-5 of the largest entry of the autograd gradient of the
+    plain forward."""
+    la, u = (x.detach().clone().requires_grad_() for x in (la, u))
+    want = torch.autograd.grad(rg.rglru_scan_ref(la, u), (la, u), gh)
+    for a, w in zip(got, want):
+        assert bool(torch.isfinite(a).all())
+        assert (a - w).abs().max() <= 1e-5 * w.abs().max()
+
+
+# the card cases, S = 1 (dlog_a is 0) and S = 16384 at a narrow width,
+# several rounds of a cluster of 8
+RGLRU_BWD_CASES = RGLRU_CASES + [(2, 1, 40), (1, 16384, 24)]
+
+
+@pytest.mark.parametrize("B,S,W", RGLRU_BWD_CASES)
+def test_rglru_fused_backward_matches_plain(gen, B, S, W):
+    la, u = _rglru_inputs(gen, B, S, W)
+    gh = _randn(gen, B, S, W)
+    b0 = rg.rglru_scan_bwd.launches
+    got = rg.rglru_scan_bwd(la, rg.rglru_scan_ref(la, u), gh)
+    torch.cuda.synchronize()
+    assert rg.rglru_scan_bwd.launches == b0 + 1
+    _assert_rglru_bwd(la, u, gh, got)
+
+
+def test_rglru_fused_backward_reads_strided_inputs(gen):
+    lat = -_randn(gen, 2, 48, 300).abs().transpose(1, 2)
+    packed = _randn(gen, 2, 300, 3 * 48)
+    u, gh, h = packed[..., :48], packed[..., 48:96], packed[..., 96:]
+    h.copy_(rg.rglru_scan_ref(lat, u))
+    got = rg.rglru_scan_bwd(lat, h, gh)
+    want = rg.rglru_scan_bwd_ref(lat.contiguous(), h.contiguous(),
+                                 gh.contiguous())
+    for a, w in zip(got, want):
+        assert _rel_err(a, w) < 1e-5
+    _assert_rglru_bwd(lat, u, gh, got)
+
+
+def test_rglru_kernel_takes_64_bit_offsets(gen):
+    """Views whose time stride times S passes 2^31 elements go to the
+    kernel's 64-bit instances: four (1, 40, 20) views 2^26 elements a
+    step apart in one 10.7 GB buffer."""
+    B, S, W, ss = 1, 40, 20, 1 << 26
+    buf = torch.empty(S * ss + 4 * W, device="cuda")
+    la, u, gh, h = (buf.as_strided((B, S, W), (0, ss, 1), k * W)
+                    for k in range(4))
+    la.copy_(-torch.rand(B, S, W, generator=gen, device="cuda") * 8.0)
+    u.copy_(_randn(gen, B, S, W))
+    gh.copy_(_randn(gen, B, S, W))
+    h.copy_(rg.rglru_scan_ref(la, u))
+    assert _rel_err(rg.rglru_scan_fwd(la, u), h) < 1e-5
+    assert _rel_err(rg.rglru_scan_reverse(la, u),
+                    rg.rglru_scan_reverse_ref(la, u)) < 1e-5
+    _assert_rglru_bwd(la, u, gh, rg.rglru_scan_bwd(la, h, gh))
 
 
 @pytest.mark.parametrize("arch", ["mamba2-1.3b", "recurrentgemma-2b"])
@@ -449,6 +511,7 @@ def test_smoke_model_gradients_match_the_plain_versions(gen, arch,
                         sd.ssd_plain(x, la, B, C, chunk=chunk)[0])
     monkeypatch.setattr(rg, "rglru_scan_fwd", rg.rglru_scan_ref)
     monkeypatch.setattr(rg, "rglru_scan_reverse", rg.rglru_scan_reverse_ref)
+    monkeypatch.setattr(rg, "rglru_scan_bwd", rg.rglru_scan_bwd_ref)
     monkeypatch.setattr(fa, "flash_attention_fwd", fa.flash_attention_plain)
     plain_loss, plain_grads = loss_and_grads()
     assert loss == pytest.approx(plain_loss, rel=1e-6)

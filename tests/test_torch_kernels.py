@@ -5,7 +5,9 @@ the int8 codec bit for bit against both JAX paths, the SSD scan against
 the Pallas kernel in interpret mode, `ssd_reference` and a sequential
 recurrence (gradients against `jax.vjp` of `ssd_reference`), and the
 RG-LRU scan against the Pallas kernel and `rglru_scan_ref` (its
-reverse-mode backward against `jax.vjp` of `rglru_scan_ref`). The bf16
+backward, and the fused backward's plain version, against `jax.vjp` of
+`rglru_scan_ref`; the one-pass kernel's blocking emulated in plain
+PyTorch against a float64 loop). The bf16
 tensor-core flash kernel's arithmetic (key tiles in order, P as bf16 hi
 + lo) and the bf16 tensor-core SSD kernel's (128-row pieces, 64-row
 tiles in order, M, the state and dec x as bf16 hi + lo) are emulated in
@@ -599,10 +601,156 @@ class TestRGLRU:
         rng = np.random.RandomState(19)
         la, b = (torch.from_numpy(a).requires_grad_()
                  for a in _rglru_arrays(rng, 1, 32, 8))
-        before = (rg.rglru_scan_fwd.launches, rg.rglru_scan_reverse.launches)
+        before = (rg.rglru_scan_fwd.launches, rg.rglru_scan_reverse.launches,
+                  rg.rglru_scan_bwd.launches)
         h = rg.rglru_scan(la, b)
         torch.autograd.grad(h.sum(), (la, b))
         torch.testing.assert_close(h, rg.rglru_scan_ref(la, b), atol=0,
                                    rtol=0)
-        assert (rg.rglru_scan_fwd.launches,
-                rg.rglru_scan_reverse.launches) == before
+        assert (rg.rglru_scan_fwd.launches, rg.rglru_scan_reverse.launches,
+                rg.rglru_scan_bwd.launches) == before
+
+    @pytest.mark.parametrize("S", [1, 64, 150, 600])
+    def test_fused_backward_matches_jax_vjp(self, S):
+        """`rglru_scan_bwd_ref`, the plain version of the fused backward
+        kernel, at recurrentgemma's decays (log a down to about -55, every
+        seventh step keeping its state)."""
+        rng = np.random.RandomState(20 + S)
+        la = (-rng.rand(2, S, 24) * 55.0).astype(np.float32)
+        la[:, ::7] *= 1e-3
+        b = (rng.randn(2, S, 24) * 0.5).astype(np.float32)
+        gh = rng.randn(2, S, 24).astype(np.float32)
+        h, vjp = jax.vjp(jax_rglru_ref, jnp.asarray(la), jnp.asarray(b))
+        want = vjp(jnp.asarray(gh))
+        got = rg.rglru_scan_bwd(torch.from_numpy(la),
+                                torch.from_numpy(np.array(h)),
+                                torch.from_numpy(gh))
+        for a, w in zip(got, want):
+            assert np.isfinite(a.numpy()).all()
+            assert _rel(a.numpy(), w) < 1e-5
+
+    def test_plan_keeps_every_block_resident(self):
+        """At recurrentgemma's layer the cluster is 4: 80 strips of 32
+        channels, 320 blocks for 3 places on each of 132 SMs; never more
+        ranks than segments."""
+        assert rg.plan(1, 4096, 2560, rg.L_SCAN, 132) == 4
+        assert rg.plan(1, 4096, 2560, rg.L_BWD, 132) == 4
+        assert rg.plan(1, 1, 5, rg.L_SCAN, 132) == 1
+        assert rg.plan(1, 200, 5, rg.L_SCAN, 132) == 2
+        assert rg.plan(1, 300, 5, rg.L_SCAN, 132) == 4
+        assert rg.plan(1, 16384, 16, rg.L_BWD, 132) == 8
+        assert rg.plan(64, 4096, 2560, rg.L_SCAN, 132) == 1
+
+    @pytest.mark.parametrize("mode", ["forward", "reverse", "backward"])
+    @pytest.mark.parametrize("S", [1, 37, 1000, 3000])
+    def test_kernel_blocking_emulation(self, mode, S):
+        """The kernel's blocking emulated in fp32 (segments of chunks, the
+        shuffle fold, the cluster's ranks and rounds, the reverse shift,
+        the backward's h_{t-1} and last la) against a float64 loop; S =
+        3000 takes several rounds of a cluster of 8 in every mode."""
+        rng = np.random.RandomState(21 + S)
+        la = (-rng.rand(2, S, 5) * 8.0).astype(np.float32)
+        la[:, ::7] *= 1e-3
+        u = rng.randn(2, S, 5).astype(np.float32)
+        h = rng.randn(2, S, 5).astype(np.float32)
+        steps = rg.L_BWD if mode == "backward" else rg.L_SCAN
+        cluster = rg.plan(2, S, 5, steps, 132)
+        if S == 3000:
+            assert cluster == 8 and S > cluster * rg.NC * steps
+        got = _emulate_rglru_kernel(torch.from_numpy(la), torch.from_numpy(u),
+                                    mode, torch.from_numpy(h), cluster)
+        a = np.exp(la.astype(np.float64))
+        want = np.zeros((2, S, 5))
+        acc = np.zeros((2, 5))
+        order = range(S) if mode == "forward" else reversed(range(S))
+        for t in order:
+            c = a[:, t] if mode == "forward" else (
+                a[:, t + 1] if t + 1 < S else 0.0)
+            acc = c * acc + u[:, t]
+            want[:, t] = acc
+        assert _rel(got[0].numpy(), want) < 1e-6
+        if mode == "backward":
+            h_prev = np.concatenate([np.zeros((2, 1, 5)), h[:, :-1]], axis=1)
+            assert _rel(got[1].numpy(), want * a * h_prev) < 1e-6
+
+
+def _shift(x, dim, by, fill):
+    """x moved `by` places up along `dim`, the first `by` set to fill."""
+    pad = torch.full_like(x.narrow(dim, 0, by), fill)
+    return torch.cat([pad, x.narrow(dim, 0, x.shape[dim] - by)], dim)
+
+
+def _scan_pairs(A, B, dim, width):
+    """The kernel's shuffle scan of affine maps over `dim`: d = 1, 2, 4
+    .. below `width`, lanes past the end of `dim` being identities."""
+    d = 1
+    while d < width and d < A.shape[dim]:
+        Al, Bl = _shift(A, dim, d, 1.0), _shift(B, dim, d, 0.0)
+        A, B = A * Al, A * Bl + B
+        d *= 2
+    return A, B
+
+
+def _emulate_rglru_kernel(la, u, mode, h, cluster):
+    """csrc/rglru_scan.cu's arithmetic and indexing in fp32 torch: step k
+    at time t (S-1-k in reverse), segments of NC chunks of L steps, rank r
+    of the cluster taking segment q CL + r in round q. Returns the scan,
+    and in the backward also dlog_a."""
+    B, S, W = u.shape
+    L = rg.L_BWD if mode == "backward" else rg.L_SCAN
+    nc, cl = rg.NC, cluster
+    rounds = -(-S // (cl * nc * L))
+    K = rounds * cl * nc * L
+    rev = mode != "forward"
+    k = torch.arange(K)
+    inr = k < S
+    t = torch.where(inr, S - 1 - k if rev else k, 0)
+    # steps past S load la = 0 and u = 0; in reverse the coefficient is
+    # la_{t+1}, -inf (exp 0) at t = S-1
+    x = torch.where(inr[:, None], u[:, t], 0.0)
+    if rev:
+        lc = torch.where((t + 1 < S)[:, None],
+                         la[:, torch.clamp(t + 1, max=S - 1)],
+                         torch.tensor(-math.inf))
+    else:
+        lc = la[:, t]
+    c = torch.exp(torch.where(inr[:, None], lc, 0.0))
+    shape = (B, rounds, cl, nc, L, W)
+    c6, x6 = c.reshape(shape), x.reshape(shape)
+    prod, v = torch.ones(shape[:4] + (W,)), torch.zeros(shape[:4] + (W,))
+    for j in range(L):
+        v = c6[..., j, :] * v + x6[..., j, :]
+        prod = prod * c6[..., j, :]
+    A, Bp = _scan_pairs(prod, v, 3, nc)
+    XA, XB = _shift(A, 3, 1, 1.0), _shift(Bp, 3, 1, 0.0)
+    CA, CB = _scan_pairs(A[:, :, :, -1], Bp[:, :, :, -1], 2, 8)
+    out = torch.empty(shape)
+    h_round = torch.zeros(B, W)
+    for q in range(rounds):
+        EA, EB = _shift(CA[:, q], 1, 1, 1.0), _shift(CB[:, q], 1, 1, 0.0)
+        hin = EA * h_round[:, None] + EB
+        hin[:, 0] = h_round
+        h_round = CA[:, q, -1] * h_round + CB[:, q, -1]
+        v = XA[:, q] * hin[:, :, None] + XB[:, q]
+        for j in range(L):
+            v = c6[:, q, :, :, j] * v + x6[:, q, :, :, j]
+            out[:, q, :, :, j] = v
+    out = out.reshape(B, K, W)
+    scan = torch.empty(B, S, W)
+    scan[:, t[:S]] = out[:, :S]
+    if mode != "backward":
+        return (scan,)
+    # exp(la_t) is the next step's coefficient, or for a chunk's last step
+    # that of the extra load la[t - ... ]; h_{t-1} shifted by one step
+    ea = torch.cat([c[:, 1:], torch.ones(B, 1, W)], 1).reshape(shape)
+    last = k.reshape(rounds, cl, nc, L)[..., -1]
+    last_t = torch.where(last < S, S - 1 - last, 0)
+    ea[..., -1, :] = torch.where((last < S)[None, ..., None],
+                                 torch.exp(la[:, last_t.reshape(-1)])
+                                 .reshape(B, rounds, cl, nc, W), 1.0)
+    hk = torch.where((k + 1 < S)[:, None],
+                     h[:, torch.clamp(t - 1, min=0)], 0.0)
+    dla_k = out * ea.reshape(B, K, W) * hk
+    dla = torch.empty(B, S, W)
+    dla[:, t[:S]] = dla_k[:, :S]
+    return scan, dla

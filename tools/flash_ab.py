@@ -1,20 +1,28 @@
 #!/usr/bin/env python3
-"""Time a bf16 tensor-core kernel, and one FL round of each main path that
-runs it, for one checkout of the port on one CUDA card.
+"""Time a kernel of the port, and one FL round of each main path that runs
+it, for one checkout of the port on one CUDA card.
 
-    python3 tools/flash_ab.py [--kernel flash|ssd] [--src DIR] [--label NAME]
+    python3 tools/flash_ab.py [--kernel flash|ssd|rglru] [--src DIR]
+                              [--label NAME]
 
 DIR is the `src` directory of the checkout to time (default: this
-checkout's). The shapes, paths and timing are `chip_smoke.py`'s. With
+checkout's). The shapes, paths and device timing are `chip_smoke.py`'s
+(`device_ms`: the calls queued behind a sleep kernel, so the host's
+time to issue them is left out); `kernel_ms` is the same calls issued
+as fast as the host issues them, with nothing queued before. With
 `--kernel flash` (the default): the bf16 flash-attention forward's mean
 milliseconds (CUDA events) at phi3-mini-3.8b's shape and at
 recurrentgemma-2b's local attention, and `measure_round_s` of those two
 main paths (int8 arm). With `--kernel ssd`: the bf16 SSD forward at
-mamba2-1.3b's layer (`SSD_MAIN`) and the mamba2-1.3b round. Prints one
-JSON line with them and the card's name and power limit as `nvidia-smi`
-gives them. To compare two checkouts on one card, run it on each in
-turns (A, B, B, A) on that card. It needs a card and exits non-zero
-without one.
+mamba2-1.3b's layer (`SSD_MAIN`) and the mamba2-1.3b round. With
+`--kernel rglru`: at recurrentgemma-2b's layer (`RGLRU_MAIN`) the RG-LRU
+scan forward, the whole scan backward (`torch.autograd.grad` through
+`rglru_scan` on a graph built once, so a checkout whose backward is the
+reverse scan plus plain passes is timed the same way), and the
+recurrentgemma-2b round. Prints one JSON line with them and the card's
+name and power limit as `nvidia-smi` gives them. To compare two
+checkouts on one card, run it on each in turns (A, B, B, A) on that
+card. It needs a card and exits non-zero without one.
 """
 import argparse
 import dataclasses
@@ -50,9 +58,46 @@ def _ssd_calls(gen):
     yield "mamba2-1.3b", lambda: sd.ssd_fwd(x, la, B, C, chunk=chunk)
 
 
+def _rglru_calls(gen):
+    """The RG-LRU scan's forward and its whole backward at
+    recurrentgemma-2b's layer, fp32."""
+    from repro_torch.kernels.rglru import ops as rg
+    la, u = smoke._rglru_inputs(gen, *smoke.RGLRU_MAIN)
+    gh = smoke._randn(gen, *smoke.RGLRU_MAIN)
+    yield "forward", lambda: rg.rglru_scan_fwd(la, u)
+    la_, u_ = (x.clone().requires_grad_() for x in (la, u))
+    h = rg.rglru_scan(la_, u_)
+    yield "backward", lambda: torch.autograd.grad(h, (la_, u_), gh,
+                                                  retain_graph=True)
+
+
+def _host_ms(fn, iters=20, warmup=3):
+    """Mean milliseconds of `fn` between CUDA events around calls issued
+    as fast as the host issues them: where the host takes longer to issue
+    a call than the card to run it (autograd's engine around the scan's
+    backward), the host's time."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+# each kernel's calls, and the main paths whose rounds are timed with it
+KERNELS = {"flash": (_flash_calls, ("phi3-mini-3.8b", "recurrentgemma-2b")),
+           "ssd": (_ssd_calls, ("mamba2-1.3b",)),
+           "rglru": (_rglru_calls, ("recurrentgemma-2b",))}
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    parser.add_argument("--kernel", choices=("flash", "ssd"),
+    parser.add_argument("--kernel", choices=tuple(KERNELS),
                         default="flash")
     parser.add_argument("--src", default=os.path.join(ROOT, "src"))
     parser.add_argument("--label", default="")
@@ -64,14 +109,15 @@ def main():
     from repro_torch.fl.training import TorchTrainerHooks
 
     gen = torch.Generator(device="cuda").manual_seed(0)
-    calls = _flash_calls if args.kernel == "flash" else _ssd_calls
+    calls, archs = KERNELS[args.kernel]
     result = {"label": args.label, "src": args.src, "kernel": args.kernel,
-              "kernel_ms": {}, "round_s": {}}
-    for arch, call in calls(gen):
-        result["kernel_ms"][arch] = smoke._time_ms(call, iters=20, warmup=3)
+              "kernel_ms": {}, "device_ms": {}, "round_s": {}}
+    for name, call in calls(gen):
+        result["kernel_ms"][name] = _host_ms(call)
+        result["device_ms"][name] = smoke._time_ms(call, iters=20, warmup=3)
     torch.cuda.empty_cache()
     for arch, layers, batch, seq, _ in smoke.PATHS:
-        if arch not in result["kernel_ms"]:
+        if arch not in archs:
             continue
         cfg = dataclasses.replace(configs.get_config(arch),
                                   num_layers=layers)

@@ -5,18 +5,28 @@
 
 Run from the root of a checkout. It builds the port's CUDA kernels from
 the sources in the checkout, holds each against its plain PyTorch
-version on the card, and drives the port's main path — FL rounds of
-`TorchTrainerHooks`, 1 round of the fp32 arm then 1 of the int8 arm, in
-the sync engine's call order — for each of three models at full width
-with the depth cut: phi3-mini-3.8b (2 layers), mamba2-1.3b (2 layers)
-and recurrentgemma-2b (3 layers, one (RG-LRU, RG-LRU, local attention)
+version on the card, and drives the port's main path — the port's
+`FLCloudRunner` (FedCostAware policy, sync engine) with
+`TorchTrainerHooks` on the card, one 1-round run of the fp32 arm then
+one of the int8 arm — for each of three models at full width with the
+depth cut: phi3-mini-3.8b (2 layers), mamba2-1.3b (2 layers) and
+recurrentgemma-2b (3 layers, one (RG-LRU, RG-LRU, local attention)
 block). Every kernel's launch counter is set to 0 just before each
-model's rounds and read just after, and each count must be what that
-model's path launches. Then it checks a SMOKE-size run of each model on
-the card against the same run on the CPU, and times each kernel beside
-its plain version, its bound and the PyTorch library call that computes
-the same function where there is one (a yardstick only; the port never
-calls it), and one round of each model. After the build it reads the
+model's runs and read just after, and each count must be what that
+model's path launches. Each run's dollars (to 1e-9) and event trace
+(byte for byte) must equal those of the same runner on the CPU with a
+payload-only stub of the same parameter tree, and a counted round
+(`launch.roofline.WorkCounter`) must carry each kernel's own work once
+a launch. Then, for phi3 and mamba2, the real-training Table I row
+(`repro_torch.benchmarks.table1.run_real_rows`, MNIST's market):
+`calibrate` anchors the simulated epochs to the measured round, both
+arms run 2 calibrated rounds, and `assert_comm_win` must pass; its
+launches are counted the same way. Then it checks a SMOKE-size run of
+each model on the card against the same run on the CPU, and times each
+kernel beside its plain version, its bound and the PyTorch library call
+that computes the same function where there is one (a yardstick only;
+the port never calls it), and one round of each model. After the build
+it reads the
 SASS of the two tensor-core libraries, bf16 flash attention and the
 bf16 SSD scan, and fails unless every head dim's and every state dim's
 instance runs its products on the tensor cores (HGMMA) and ptxas
@@ -33,12 +43,14 @@ lines of standard output are the card's name and power limit as
 Before them comes one `{"kernels": [...]}` line.
 """
 import dataclasses
+import gc
 import json
 import math
 import os
 import re
 import subprocess
 import sys
+import time
 
 import torch
 
@@ -48,20 +60,19 @@ import torch
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 
+# flash at phi3-mini-3.8b's layer: B, S, N, H
 MAIN_B, MAIN_S, MAIN_N, MAIN_H = 4, 1024, 32, 96
 CLIENTS = ("client_0", "client_1")
-LOCAL_STEPS = 2
 LR = 5e-3                           # the hooks' default
 
-# model, depth, batch, sequence of each main path, and the leaves that
-# may stay put in its round. mamba2 runs at the context it was trained
-# at (8 chunks of 256); recurrentgemma at twice its 2048 window, so the
-# window masks. mamba2's D (all ones) and recurrentgemma's bf16 wo and
-# wv take steps far below half an ulp of their entries in two steps
-PATHS = (("phi3-mini-3.8b", 2, MAIN_B, MAIN_S, ()),
-         ("mamba2-1.3b", 2, 2, 2048, ("blocks/00_mamba2/mix/D",)),
-         ("recurrentgemma-2b", 3, 1, 4096,
-          ("blocks/02_local_attn/mix/wo", "blocks/02_local_attn/mix/wv")))
+# The main paths (the package's `benchmarks.table1.MAIN_PATHS`: model ->
+# depth, batch, sequence), and the leaves that may stay put in each
+# one's round: mamba2's D (all ones) and recurrentgemma's bf16 wo and wv
+# take steps far below half an ulp of their entries in two steps
+MAY_STAY = {"phi3-mini-3.8b": (),
+            "mamba2-1.3b": ("blocks/00_mamba2/mix/D",),
+            "recurrentgemma-2b": ("blocks/02_local_attn/mix/wo",
+                                  "blocks/02_local_attn/mix/wv")}
 # ssd at mamba2-1.3b's layer: b, s, heads, head dim, groups, state, chunk
 SSD_MAIN = (2, 2048, 64, 64, 1, 128, 256)
 RGLRU_MAIN = (1, 4096, 2560)        # recurrentgemma-2b's layer: B, S, W
@@ -73,9 +84,32 @@ FLASH_SM90 = ("src/repro_torch/kernels/flash_attention/csrc/"
               "flash_attention_fwd_sm90.cu")
 SSD_SM90 = "src/repro_torch/kernels/ssd/csrc/ssd_fwd_sm90.cu"
 RGLRU_SRC = "src/repro_torch/kernels/rglru/csrc/rglru_scan.cu"
-# rows of the pieces that ssd_fwd_sm90.cu cuts the sequence into, whatever
-# chunk the caller names
-SSD_PIECE = 128
+# the real-training Table I row: its dataset (whose market and epoch
+# times the calibrated runs take), FL rounds a run, and the main paths
+# it runs at (recurrentgemma's is left out for the script's time: its
+# two arms' hooks alone draw 1.65 billion parameters on the host)
+REAL_ROW, REAL_ROUNDS = "MNIST", 2
+REAL_PATHS = ("phi3-mini-3.8b", "mamba2-1.3b")
+
+
+def paths():
+    """(model, depth, batch, sequence, leaves that may stay put) of each
+    main path, in the order the script runs them."""
+    from repro_torch.benchmarks.table1 import MAIN_PATHS
+    return [(arch, *MAIN_PATHS[arch], MAY_STAY[arch]) for arch in MAY_STAY]
+
+
+def _check_shapes():
+    """Each kernel's checked and timed shape is its main path's."""
+    from repro_torch.benchmarks.table1 import MAIN_PATHS
+    from repro_torch.configs import get_config
+    main = {arch: v[1:] for arch, v in MAIN_PATHS.items()}
+    phi3 = get_config("phi3-mini-3.8b")
+    _check((MAIN_B, MAIN_S) == main["phi3-mini-3.8b"]
+           and (MAIN_N, MAIN_H) == (phi3.num_heads, phi3.resolved_head_dim)
+           and SSD_MAIN[:2] == main["mamba2-1.3b"]
+           and RGLRU_MAIN[:2] == FLASH_RG[:2] == main["recurrentgemma-2b"],
+           f"a kernel shape is not its main path's: {MAIN_PATHS}")
 
 
 def _fail(msg):
@@ -108,29 +142,13 @@ def _time_ms(fn, iters=10, warmup=2):
     return start.elapsed_time(end) / iters
 
 
-def _bound_ms(nbytes, flops, dtype):
+def _bound_ms(flops, nbytes, dtype):
+    """The least time the card takes for `flops` of `dtype` and `nbytes`
+    (each kernel's counts from `launch.roofline`, which the port's
+    `WorkCounter` also adds up)."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / PEAK_FLOPS[dtype] * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
-
-
-def _causal_flops(B, S, N, H, window=None):
-    """Multiply-adds of QK^T and PV over the unmasked (query, key) pairs."""
-    pairs = sum(min(i + 1, window or i + 1) for i in range(S))
-    return 4.0 * H * pairs * B * N
-
-
-def _ssd_flops(b, s, h, p, n, chunk):
-    """The chunked form's products, per chunk of Q rows: C B^T and (.)x
-    over the Q(Q+1)/2 causal pairs (j <= i) only, C . state and the
-    state update. The function does not depend on the chunk, and fewer
-    rows a chunk take fewer products: pass the smallest chunk that a
-    kernel of the function is known to run at."""
-    flops = 0.0
-    for t0 in range(0, s, chunk):
-        q = min(chunk, s - t0)
-        flops += 2.0 * (q * (q + 1) // 2) * (n + p) + 4.0 * q * n * p
-    return flops * b * h
 
 
 def _rel_err(got, want):
@@ -455,21 +473,69 @@ def _check_rglru(gen, errs):
           f"(tolerance 1e-5)")
 
 
-def _play_rounds(hooks, first_round, n_rounds):
-    for r in range(first_round, first_round + n_rounds):
-        for c in hooks.clients:
-            hooks.run_local(c, r)
-        hooks.aggregate(list(hooks.clients), r,
-                        staleness={c: 0 for c in hooks.clients})
+def _fl_run(hooks, quantize):
+    """One 1-round run of the port's runner (FedCostAware, sync engine)
+    over `hooks`, uncalibrated, on the real-training row's market, which
+    prices egress, so the run bills a nonzero comm_cost. Returns the
+    RunResult and the recorded event trace."""
+    from repro_torch.benchmarks.table1 import ROWS, comm_market
+    from repro_torch.common.config import (CloudConfig, ClientProfile,
+                                           FLRunConfig)
+    from repro_torch.fl.runner import FLCloudRunner
+
+    row = next(r for r in ROWS if r.dataset == REAL_ROW)
+    clients = tuple(ClientProfile(c, mean_epoch_s=row.epoch_s[i],
+                                  cold_multiplier=1.12, jitter=0.0)
+                    for i, c in enumerate(CLIENTS))
+    cfg = FLRunConfig(dataset=row.dataset, clients=clients, n_epochs=1,
+                      policy="fedcostaware", seed=0,
+                      quantize_updates=quantize)
+    cloud = CloudConfig(spin_up_mean_s=row.spin_up_s, spin_up_sigma=0.0,
+                        market=comm_market(row))
+    runner = FLCloudRunner(cfg, cloud_cfg=cloud, hooks=hooks, record=True)
+    return runner.run(), runner.recorder.dumps()
 
 
-def _expected_launches(cfg, n_leaves):
-    """What one fp32 round and one int8 round of `cfg` launch: a layer's
-    forward kernels once a step, twice in the stacked blocks under remat
-    (the forward and the recompute), the RG-LRU fused backward once a
-    step in the backward (the reverse scan alone never), and the codec
-    on every leaf of every participant's delta on the int8 arm."""
-    steps = 2 * len(CLIENTS) * LOCAL_STEPS
+def _payload_stub(cfg):
+    """Hooks that train nothing and bill the payload of `cfg`'s parameter
+    tree, held as shapes only (meta tensors)."""
+    from repro_torch.common.bridge import unflatten
+    from repro_torch.comms.payload import UpdatePayload
+    from repro_torch.fl.types import TrainerHooks
+    from repro_torch.models import lm
+
+    tree = unflatten({k: torch.empty(shape, dtype=dtype, device="meta")
+                      for k, (shape, dtype) in lm.param_shapes(cfg)})
+
+    class PayloadStub(TrainerHooks):
+        def aggregate(self, participants, round_idx, staleness=None):
+            pass
+
+        def update_payload(self, quantized=False):
+            return UpdatePayload.from_tree(tree, quantized=quantized)
+
+    return PayloadStub()
+
+
+def _reset_counters():
+    counters = _counters()
+    for fn in counters.values():
+        fn.launches = 0
+    counters["ssd_fwd"].sm90_launches = 0
+    return counters
+
+
+def _expected_launches(cfg, n_leaves, train_rounds=2,
+                       codec_updates=len(CLIENTS)):
+    """What `train_rounds` rounds of local training of every slot and
+    the int8 arm's codec over `codec_updates` participant deltas of `cfg`
+    launch (by default the main path: one fp32 round, then one int8
+    round): a layer's forward kernels once a step, twice in the stacked
+    blocks under remat (the forward and the recompute), the RG-LRU fused
+    backward once a step in the backward (the reverse scan alone never),
+    and the codec on every leaf of every delta."""
+    from repro_torch.benchmarks.table1 import LOCAL_STEPS
+    steps = train_rounds * len(CLIENTS) * LOCAL_STEPS
 
     def layers(*kinds, fwd=True):
         per_block = sum(cfg.pattern.count(k) for k in kinds) * cfg.n_super
@@ -477,8 +543,8 @@ def _expected_launches(cfg, n_leaves):
         return steps * (per_block * (2 if fwd and cfg.remat else 1) + tail)
 
     return {"flash_attention_fwd": layers("attn", "local_attn"),
-            "quantize": len(CLIENTS) * n_leaves,
-            "dequantize": len(CLIENTS) * n_leaves,
+            "quantize": codec_updates * n_leaves,
+            "dequantize": codec_updates * n_leaves,
             "ssd_fwd": layers("mamba2"),
             "rglru_scan_fwd": layers("rglru"),
             "rglru_scan_reverse": 0,
@@ -488,6 +554,7 @@ def _expected_launches(cfg, n_leaves):
 def phase_main_path(arch, layers, batch, seq, may_stay):
     """One model's main path at full width, depth cut to `layers`."""
     from repro_torch import configs
+    from repro_torch.benchmarks.table1 import LOCAL_STEPS
     from repro_torch.common.bridge import flatten_with_paths
     from repro_torch.comms.payload import quantized_leaf_bytes
     from repro_torch.fl.training import TorchTrainerHooks
@@ -499,6 +566,7 @@ def phase_main_path(arch, layers, batch, seq, may_stay):
                                  batch=batch, seq=seq, lr=LR,
                                  quantize=quantize, seed=0, device="cuda")
 
+    gc.collect()        # an earlier path's hooks, held by its runner
     torch.cuda.reset_peak_memory_stats()
     hooks = make(False)
     init = {k: v.clone() for k, v in flatten_with_paths(hooks.params)}
@@ -509,16 +577,16 @@ def phase_main_path(arch, layers, batch, seq, may_stay):
           f"{len(CLIENTS)} clients, local_steps={LOCAL_STEPS}, "
           f"batch={batch}, seq={seq}")
 
-    counters = _counters()
-    for fn in counters.values():
-        fn.launches = 0
-    counters["ssd_fwd"].sm90_launches = 0
-    _play_rounds(hooks, 0, 1)
+    counters = _reset_counters()
+    runs = {"fp32": _fl_run(hooks, quantize=False)}
     fp32_losses = [r["mean_loss"] for r in hooks.losses]
     fp32_payload = hooks.update_payload(quantized=False)
+    # the runner's event bus and engines hold one another, so the fp32
+    # arm's hooks stay alive until the cycle collector frees them
     del hooks
+    gc.collect()
     hooks = make(True)
-    _play_rounds(hooks, 0, 1)
+    runs["int8"] = _fl_run(hooks, quantize=True)
     torch.cuda.synchronize()
     launches = {name: fn.launches for name, fn in counters.items()}
     ssd_sm90 = counters["ssd_fwd"].sm90_launches
@@ -563,12 +631,124 @@ def phase_main_path(arch, layers, batch, seq, may_stay):
     print(f"[main] {cfg.name}: payload per client update: fp32 "
           f"{fp32_payload.num_bytes} B, int8 {q_payload.num_bytes} B over "
           f"{q_payload.n_leaves} leaves")
+    _check_dollars(cfg, runs)
+    _check_counted_round(cfg, hooks, len(init))
     round_s = hooks.measure_round_s(warmup=1, iters=2)
     print(f"[times] {cfg.name} measure_round_s (int8 arm, {len(CLIENTS)} "
           f"clients x {LOCAL_STEPS} steps, batch {batch}, seq {seq}): "
           f"{round_s:.4f} s")
     deltas = {k: final[k].float() - init[k].float() for k in init}
     return launches, deltas
+
+
+def _check_dollars(cfg, runs):
+    """Each arm's dollars and event trace against the port's runner on
+    the CPU with a payload-only stub of the same parameter tree: the
+    dollars depend only on the profiles and the payload bytes."""
+    stub = _payload_stub(cfg)
+    for arm, (res, trace) in runs.items():
+        want, want_trace = _fl_run(stub, quantize=arm == "int8")
+        _check(res.comm_cost > 0, f"{cfg.name} {arm}: no egress billed")
+        _check(abs(res.total_cost - want.total_cost) <= 1e-9
+               and abs(res.comm_cost - want.comm_cost) <= 1e-9,
+               f"{cfg.name} {arm}: card run ${res.total_cost!r} "
+               f"(egress ${res.comm_cost!r}), CPU stub ${want.total_cost!r} "
+               f"(egress ${want.comm_cost!r})")
+        _check(trace == want_trace, f"{cfg.name} {arm}: the card run's event "
+               f"trace differs from the CPU stub's")
+        _check([sorted(r) for r in res.per_round_participants]
+               == [sorted(CLIENTS)],
+               f"{cfg.name} {arm}: participants {res.per_round_participants}")
+        print(f"[dollars] {cfg.name} {arm} arm, 1 round: total "
+              f"${res.total_cost!r}, egress ${res.comm_cost!r}, makespan "
+              f"{res.makespan_s!r} s; equal to the CPU runner's with a "
+              f"payload-only stub (to 1e-9), event trace of "
+              f"{len(trace.encode())} bytes equal byte for byte")
+
+
+def _check_counted_round(cfg, hooks, n_leaves):
+    """One round of local training of every slot under a `WorkCounter`:
+    each kernel's own work must be there once a launch."""
+    wc = hooks.count_round_work()
+    torch.cuda.synchronize()
+    want = {k: v for k, v in _expected_launches(cfg, n_leaves, 1, 0).items()
+            if v}
+    got = {k: int(v[0]) for k, v in wc.kernels.items()}
+    _check(got == want, f"{cfg.name}: the counted round holds kernel work "
+           f"of {got} launches, want {want}")
+    top = sorted(wc.bytes_by_op.items(), key=lambda kv: -kv[1])[:8]
+    print(f"[count] {cfg.name} one round of local training: "
+          f"{wc.flops!r} FLOPs ({wc.kernel_flops!r} in the port's kernels), "
+          f"{wc.bytes_accessed!r} bytes ({wc.kernel_bytes!r} in the "
+          f"kernels); kernels [launches, FLOPs, bytes]: {wc.kernels}; the "
+          f"aten ops that move the most bytes: {top}")
+
+
+def phase_real(arch):
+    """The real-training Table I row at one main path's size, as the
+    package runs it (`run_real_rows` at `MAIN_PATHS`): each arm is
+    calibrated (its measured round anchors the simulated epochs) and
+    runs `REAL_ROUNDS` calibrated rounds; the int8 arm must bill less
+    egress at a bounded final-loss delta (`assert_comm_win`)."""
+    from repro_torch.benchmarks import table1 as T1
+    from repro_torch.launch.roofline import estimate_step_time
+    from repro_torch.models import lm
+
+    cfg = T1.main_path(arch)[0]
+    row = next(r for r in T1.ROWS if r.dataset == REAL_ROW)
+    # the main paths' hooks, held by their runners, go first, so the
+    # peak read below is the real row's alone
+    gc.collect()
+    torch.cuda.reset_peak_memory_stats()
+    counters = _reset_counters()
+    recs = T1.run_real_rows(row, rounds=REAL_ROUNDS, n_clients=len(CLIENTS),
+                            quantize=False, both=True, model=arch,
+                            device="cuda")
+    torch.cuda.synchronize()
+    launches = {name: fn.launches for name, fn in counters.items()}
+    print(f"[real] {cfg.name}: peak device memory over both arms "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    # a calibration trains CAL_WARMUP + CAL_ITERS rounds in
+    # measure_round_s and 1 in count_round_work, then the run
+    # REAL_ROUNDS, each arm
+    cal_rounds = T1.CAL_WARMUP + T1.CAL_ITERS + 1
+    want = _expected_launches(
+        cfg, len(lm.param_shapes(cfg)),
+        train_rounds=2 * (cal_rounds + REAL_ROUNDS),
+        codec_updates=REAL_ROUNDS * len(CLIENTS))
+    print(f"[real] {cfg.name}: launches during the real-training row: "
+          f"{launches}")
+    _check(launches == want, f"{cfg.name} real row: launched {launches}, "
+           f"want {want}")
+    for r in recs:
+        cal = r["calibration"]
+        est_max = estimate_step_time(cal.flops, cal.bytes_accessed,
+                                     peak_flops=cal.peak_flops,
+                                     hbm_bw=cal.mem_bw, combine="max")
+        print(f"[real] {cfg.name} {r['algorithm']}: measured round "
+              f"{cal.measured_round_s!r} s (median of {T1.CAL_ITERS} after "
+              f"{T1.CAL_WARMUP} warm-up); counted {cal.flops!r} FLOPs, "
+              f"{cal.bytes_accessed!r} bytes; measured peaks "
+              f"{cal.peak_flops!r} FLOP/s (bf16 products), {cal.mem_bw!r} "
+              f"B/s (copy)")
+        print(f"[real] {cfg.name} {r['algorithm']}: roofline \"sum\" "
+              f"{cal.roofline_round_s!r} s, ratio {cal.ratio!r}; roofline "
+              f"\"max\" {est_max!r} s, ratio "
+              f"{cal.measured_round_s / est_max!r}")
+        print(f"[real] {cfg.name} {r['algorithm']}: calibrated epoch "
+              f"{cal.mean_epoch_s(T1._TIME_SCALE)!r} s (x{T1._TIME_SCALE:g}); "
+              f"{REAL_ROUNDS} rounds cost ${r['total_cost']} (egress "
+              f"${r['comm_cost']}), makespan {r['makespan_h']} h, final "
+              f"loss {r['final_loss']}")
+        _check(all(math.isfinite(v) and v > 0 for v in (
+            cal.measured_round_s, cal.roofline_round_s, cal.flops,
+            cal.bytes_accessed, cal.peak_flops, cal.mem_bw,
+            r["total_cost"], r["comm_cost"])) and math.isfinite(
+                r["final_loss"]), f"{cfg.name} {r['algorithm']}: {r}")
+    try:
+        T1.assert_comm_win(recs[0], recs[1])
+    except SystemExit as e:
+        _fail(f"{cfg.name} real row: {e}")
 
 
 # Card-against-CPU bar of one SMOKE round, per leaf: a share of the
@@ -599,7 +779,7 @@ def phase_small_reference(arch):
                                       local_steps=2, batch=2, seq=64,
                                       quantize=quantize, device=device)
             init = {k: v.cpu() for k, v in flatten_with_paths(hooks.params)}
-            _play_rounds(hooks, 0, 1)
+            _fl_run(hooks, quantize)
             runs.append(({k: v.cpu() for k, v in
                           flatten_with_paths(hooks.params)},
                          [r["mean_loss"] for r in hooks.losses]))
@@ -633,6 +813,7 @@ def _total_launches(path_launches):
 def _flash_row(fa, gen, name, B, S, N, H, window, launches, err):
     """Flash at one main path's shape: the kernel, its plain version, its
     bound and SDPA (the window as a boolean mask where there is one)."""
+    from repro_torch.launch import roofline as R
     q, k, v = (_randn(gen, B, S, N, H, dtype=torch.bfloat16)
                for _ in range(3))
     qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
@@ -648,8 +829,8 @@ def _flash_row(fa, gen, name, B, S, N, H, window, launches, err):
         def lib():
             return torch.nn.functional.scaled_dot_product_attention(
                 qt, kt, vt, attn_mask=mask)
-    bound, by = _bound_ms(4 * q.numel() * q.element_size(),
-                          _causal_flops(B, S, N, H, window), torch.bfloat16)
+    bound, by = _bound_ms(*R.attention_work(B, S, S, N, H, q.element_size(),
+                                            window=window), torch.bfloat16)
     return dict(
         name=name, route="cuda", source=FLASH_SM90,
         replaces="src/repro/kernels/flash_attention/kernel.py:85",
@@ -668,6 +849,7 @@ def phase_times(gen, path_launches, errs, deltas):
     from repro_torch.kernels.grad_quant import ops as gq
     from repro_torch.kernels.rglru import ops as rg
     from repro_torch.kernels.ssd import ops as sd
+    from repro_torch.launch import roofline as R
 
     launches = _total_launches(path_launches)
     rows = [_flash_row(fa, gen, "flash_attention_fwd", MAIN_B, MAIN_S,
@@ -699,11 +881,9 @@ def phase_times(gen, path_launches, errs, deltas):
           f"{sum(d.numel() for d in leaves)} elements): bit-equal")
     n = sum(d.numel() for d in leaves)
     nb = sum(qq.shape[0] for qq, _ in coded)
-    codec_bytes = 4 * n + nb * gq.BLOCK + 4 * nb
-    # per element: abs and max, then a divide, a round and two clamps;
-    # dequantize one multiply
-    q_bound, q_by = _bound_ms(codec_bytes, 5.0 * n + nb, torch.float32)
-    d_bound, d_by = _bound_ms(codec_bytes, 1.0 * n, torch.float32)
+    q_bound, q_by = _bound_ms(*R.codec_work(n, nb, gq.BLOCK), torch.float32)
+    d_bound, d_by = _bound_ms(*R.codec_work(n, nb, gq.BLOCK, dequantize=True),
+                              torch.float32)
     for name, line, fn, plain_fn, lib_fn, bound, by in [
             ("quantize", 35,
              lambda: [gq.quantize(d) for d in leaves],
@@ -724,14 +904,12 @@ def phase_times(gen, path_launches, errs, deltas):
             bound_ms=bound, bound_by=by,
             library_ms=_time_ms(lib_fn, iters=5) if lib_fn else None))
 
-    # ssd at mamba2-1.3b's layer: x and y, la, one group of B and C once
+    # ssd at mamba2-1.3b's layer, at the tensor-core kernel's pieces
     b, s, h, p, g, n, chunk = SSD_MAIN
     x, la, Bm, Cm = _ssd_inputs(gen, b, s, h, p, g, n, torch.bfloat16)
-    nbytes = (2 * x.numel() * x.element_size() + la.numel() * 4
-              + 2 * Bm.numel() * Bm.element_size())
     bound, by = _bound_ms(
-        nbytes, _ssd_flops(b, s, h, p, n, min(chunk, SSD_PIECE)),
-        torch.bfloat16)
+        *R.ssd_work(b, s, h, p, g, n, min(chunk, sd.SM90_PIECE),
+                    x.element_size()), torch.bfloat16)
     rows.append(dict(
         name="ssd_fwd", route="cuda", source=SSD_SM90,
         replaces="src/repro/kernels/ssd/kernel.py:70",
@@ -741,22 +919,20 @@ def phase_times(gen, path_launches, errs, deltas):
                           iters=3),
         bound_ms=bound, bound_by=by, library_ms=None))
 
-    # the RG-LRU scan at recurrentgemma-2b's layer, both modes: read la
-    # and the input, write the output, one fused multiply-add a step; the
-    # fused backward reads la, gh and h and writes dlog_a and db, a fused
-    # multiply-add and two multiplies a step
+    # the RG-LRU scan at recurrentgemma-2b's layer, both modes and the
+    # fused backward
     la, u = _rglru_inputs(gen, *RGLRU_MAIN)
     gh = _randn(gen, *RGLRU_MAIN)
     h = rg.rglru_scan_fwd(la, u)
     n = u.numel()
-    for name, fn, plain_fn, arrays, ops in [
+    for name, fn, plain_fn, backward in [
             ("rglru_scan_fwd", lambda: rg.rglru_scan_fwd(la, u),
-             lambda: rg.rglru_scan_ref(la, u), 3, 2.0),
+             lambda: rg.rglru_scan_ref(la, u), False),
             ("rglru_scan_reverse", lambda: rg.rglru_scan_reverse(la, u),
-             lambda: rg.rglru_scan_reverse_ref(la, u), 3, 2.0),
+             lambda: rg.rglru_scan_reverse_ref(la, u), False),
             ("rglru_scan_bwd", lambda: rg.rglru_scan_bwd(la, h, gh),
-             lambda: rg.rglru_scan_bwd_ref(la, h, gh), 5, 4.0)]:
-        bound, by = _bound_ms(arrays * n * 4, ops * n, torch.float32)
+             lambda: rg.rglru_scan_bwd_ref(la, h, gh), True)]:
+        bound, by = _bound_ms(*R.rglru_work(n, backward), torch.float32)
         rows.append(dict(
             name=name, route="cuda", source=RGLRU_SRC,
             replaces="src/repro/kernels/rglru/kernel.py:54",
@@ -774,6 +950,7 @@ def phase_times(gen, path_launches, errs, deltas):
 
 
 def main():
+    t0 = time.perf_counter()
     if not torch.cuda.is_available():
         _fail("torch.cuda.is_available() is false: the port runs on a "
               "CUDA card")
@@ -783,23 +960,28 @@ def main():
     torch.backends.cudnn.allow_tf32 = False
     gen = torch.Generator(device="cuda").manual_seed(0)
 
+    _check_shapes()
     phase_build()
     errs = phase_kernels(gen)
     path_launches, deltas = {}, None
-    for arch, layers, batch, seq, may_stay in PATHS:
+    for arch, layers, batch, seq, may_stay in paths():
         path_launches[arch], d = phase_main_path(arch, layers, batch, seq,
                                                  may_stay)
         deltas = deltas or d
         del d
     print(f"[main] launches over the three main paths: "
           f"{_total_launches(path_launches)}")
-    for arch, *_ in PATHS:
+    for arch in REAL_PATHS:
+        phase_real(arch)
+    for arch in MAY_STAY:
         phase_small_reference(arch)
     rows = phase_times(gen, path_launches, errs, deltas)
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True, check=True)
+    print(f"[times] chip_smoke.py, build to the kernels line: "
+          f"{time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": rows}))
     print(smi.stdout.strip().splitlines()[0])
     print(json.dumps({"ok": True, "device": {

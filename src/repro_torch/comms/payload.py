@@ -61,3 +61,14 @@ class UpdatePayload:
         return cls(n_params=sum(counts), n_leaves=len(counts),
                    num_bytes=sum(per_leaf(n) for n in counts),
                    quantized=quantized)
+
+    @classmethod
+    def from_mb(cls, size_mb: float,
+                quantized: bool = False) -> "UpdatePayload":
+        """Back a modeled size (`FLRunConfig.update_payload_mb`) into a
+        payload, treating it as one flat fp32 leaf of the equivalent
+        element count so the quantized variant prices consistently."""
+        n = max(int(round(size_mb * (1 << 20))) // _FP32_BYTES, 0)
+        per_leaf = quantized_leaf_bytes if quantized else fp32_leaf_bytes
+        return cls(n_params=n, n_leaves=1, num_bytes=per_leaf(n),
+                   quantized=quantized)

@@ -20,12 +20,20 @@ client's `token_stream` stays where the JAX run's would be, and a
 non-participant keeps its momentum, as the JAX `keep` mask does.
 
 The hooks run on the card (`device="cuda"`) unless the caller asks for
-the CPU; without a card the default raises. `calibrate` and
-`calibrated_profiles` come with the slice that ports the roofline
-tooling (ROADMAP §1, queued item 2).
+the CPU; without a card the default raises.
+
+Calibration (`calibrate` / `calibrated_profiles`) anchors simulated
+time to real compute, as the JAX package's does: it wall-clocks one
+round of local training of every slot, cross-checks the measurement
+against a roofline estimate (`launch.roofline.estimate_step_time`) built
+from the FLOPs and bytes counted over one such round
+(`launch.roofline.WorkCounter`, the kernels' own work included) and the
+peaks measured on the hooks' device, and rewrites
+`ClientProfile.mean_epoch_s` from the measurement.
 """
 from __future__ import annotations
 
+import dataclasses
 import math
 import time
 from typing import Dict, List, Optional, Sequence
@@ -35,11 +43,12 @@ import torch
 
 from repro_torch import configs
 from repro_torch.common.bridge import flatten_with_paths, unflatten
-from repro_torch.common.config import ModelConfig
+from repro_torch.common.config import ClientProfile, ModelConfig
 from repro_torch.comms.payload import UpdatePayload
 from repro_torch.data.synthetic import token_stream
 from repro_torch.fl.types import TrainerHooks
 from repro_torch.kernels.grad_quant import ops as gq
+from repro_torch.launch.roofline import WorkCounter, estimate_step_time
 from repro_torch.models import lm
 
 
@@ -50,6 +59,11 @@ def _require_device(device) -> torch.device:
             "TorchTrainerHooks: no CUDA device is available; pass "
             "device='cpu' to run the plain versions on the CPU")
     return dev
+
+
+def _sync(dev: torch.device) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
 
 
 class TorchTrainerHooks(TrainerHooks):
@@ -205,18 +219,138 @@ class TorchTrainerHooks(TrainerHooks):
 
     def measure_round_s(self, warmup: int = 1, iters: int = 2) -> float:
         """Wall-clock one round of local training of every slot, on
-        held-out batches, after `warmup` runs. State is not advanced."""
+        held-out batches, after `warmup` runs: the median of `iters`
+        timed rounds (their mean for two). State is not advanced."""
         batches = self._next_batches()
 
         def one_round():
+            t0 = time.perf_counter()
             for i, b in enumerate(batches):
                 self._local_train(self.params, self.mu[i], b)
-            if self.device.type == "cuda":
-                torch.cuda.synchronize(self.device)
+            _sync(self.device)
+            return time.perf_counter() - t0
 
         for _ in range(max(warmup, 1)):
             one_round()
+        return float(np.median([one_round() for _ in range(max(iters, 1))]))
+
+    def count_round_work(self) -> WorkCounter:
+        """The FLOPs and bytes of one round of local training of every
+        slot, on held-out batches, as `measure_round_s` times it. State
+        is not advanced."""
+        batches = self._next_batches()
+        with WorkCounter() as wc:
+            for i, b in enumerate(batches):
+                self._local_train(self.params, self.mu[i], b)
+        return wc
+
+
+# ---------------------------------------------------------------------------
+# Calibration: measured round time -> simulated ClientProfile epoch times,
+# cross-checked against a measured-peak roofline estimate.
+# ---------------------------------------------------------------------------
+@dataclasses.dataclass(frozen=True)
+class StepCalibration:
+    """One calibration measurement and its roofline cross-check."""
+    measured_round_s: float      # wall-clock of one round of every slot
+    roofline_round_s: float      # estimate from counted work + peaks
+    flops: float                 # FLOPs counted over that round
+    bytes_accessed: float        # bytes counted over that round
+    peak_flops: float            # measured matmul throughput (FLOP/s)
+    mem_bw: float                # measured memory bandwidth (bytes/s)
+
+    @property
+    def ratio(self) -> float:
+        """measured / roofline — the cross-check of the measurement."""
+        return self.measured_round_s / self.roofline_round_s
+
+    def mean_epoch_s(self, time_scale: float = 1.0) -> float:
+        """The simulated epoch duration this measurement anchors:
+        one local-training round scaled by `time_scale` (the paper's
+        scaled-duration simulation knob)."""
+        return self.measured_round_s * time_scale
+
+
+def _per_call_s(fn, dev: torch.device, iters: int) -> float:
+    """Seconds one call of `fn` takes on `dev`, over `iters` calls after
+    one warm-up call. On the card it is device time (CUDA events), the
+    calls queued behind a sleep kernel of about 50 ms, so the host's
+    time to issue them, and any pause of the host meanwhile, stays out."""
+    fn()
+    _sync(dev)
+    if dev.type != "cuda":
         t0 = time.perf_counter()
-        for _ in range(max(iters, 1)):
-            one_round()
-        return (time.perf_counter() - t0) / max(iters, 1)
+        for _ in range(iters):
+            fn()
+        return (time.perf_counter() - t0) / iters
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    torch.cuda._sleep(100_000_000)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / 1e3 / iters
+
+
+def _measure_peaks(device, iters: int = 8):
+    """Measured peaks of `device` for the roofline cross-check:
+    achievable matmul FLOP/s and memory copy bandwidth (bytes read and
+    written by `x + 1`). On the CPU at the JAX package's sizes, fp32
+    products of dim 256 and a 16 MB copy, comparable to the smoke
+    model's ops; on the card at sizes that reach its peak, bf16
+    products of dim 8192 and a 1 GiB copy. Each timed call writes into
+    one output, so no allocation falls inside the timing."""
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        dim, dtype, n_copy = 8192, torch.bfloat16, 1 << 28
+    else:
+        dim, dtype, n_copy = 256, torch.float32, 1 << 22
+    gen = torch.Generator().manual_seed(0)
+    a, b = (torch.randn(dim, dim, generator=gen).to(dtype).to(dev)
+            for _ in range(2))
+    c = torch.empty(dim, dim, dtype=dtype, device=dev)
+    flops_s = 2.0 * dim ** 3 / _per_call_s(
+        lambda: torch.mm(a, b, out=c), dev, iters)
+    del a, b, c
+
+    x = torch.zeros(n_copy, dtype=torch.float32, device=dev)
+    out = torch.empty_like(x)
+    bw = 2.0 * x.numel() * 4 / _per_call_s(
+        lambda: torch.add(x, 1.0, out=out), dev, iters)
+    del x, out
+    return flops_s, bw
+
+
+def calibrate(hooks: TorchTrainerHooks, warmup: int = 1,
+              iters: int = 2) -> StepCalibration:
+    """Measure one round's wall-clock and cross-check it against the
+    roofline estimate built from the FLOPs and bytes counted over one
+    round and the peaks measured on the hooks' device. A round trains
+    every slot in turn, so the counts are the whole round's, and the
+    terms combine serially (`combine="sum"`)."""
+    measured = hooks.measure_round_s(warmup=warmup, iters=iters)
+    wc = hooks.count_round_work()
+    flops, nbytes = wc.flops, wc.bytes_accessed
+    peak_flops, bw = _measure_peaks(hooks.device)
+    roofline = estimate_step_time(flops, nbytes, peak_flops=peak_flops,
+                                  hbm_bw=bw, combine="sum")
+    return StepCalibration(measured_round_s=measured,
+                           roofline_round_s=roofline, flops=flops,
+                           bytes_accessed=nbytes, peak_flops=peak_flops,
+                           mem_bw=bw)
+
+
+def calibrated_profiles(profiles: Sequence[ClientProfile],
+                        cal: StepCalibration,
+                        time_scale: float = 1.0) -> List[ClientProfile]:
+    """Rewrite each profile's `mean_epoch_s` from the measurement —
+    simulated durations anchored to real compute instead of config
+    guesses. Relative client speed (each profile's epoch time vs the
+    cohort mean) is preserved so heterogeneity survives calibration."""
+    base = float(np.mean([p.mean_epoch_s for p in profiles]))
+    anchor = cal.mean_epoch_s(time_scale)
+    return [dataclasses.replace(
+        p, mean_epoch_s=anchor * (p.mean_epoch_s / base if base > 0
+                                  else 1.0))
+            for p in profiles]

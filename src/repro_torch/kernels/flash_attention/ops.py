@@ -3,7 +3,8 @@ already expanded to N heads by the attention layer.
 
 Differentiable through `torch.autograd.Function`: the forward is
 `flash_attention_fwd`, which on a CUDA tensor launches one of two kernels
-(adding one to its `launches` count) and on a CPU tensor runs the plain
+(adding one to its `launches` count, and its work to an active
+`launch.roofline.WorkCounter`) and on a CPU tensor runs the plain
 version in `ref.py`. bf16 goes to `csrc/flash_attention_fwd_sm90.cu`, on
 the tensor cores; fp32 to `csrc/flash_attention_fwd.cu`, on the CUDA
 cores.
@@ -21,6 +22,7 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.kernels._tma import map_strides, tma_ready
 from repro_torch.kernels.flash_attention.ref import reference_attention
+from repro_torch.launch import roofline
 
 HEAD_DIMS = (16, 32, 64, 96, 128, 256)
 _STEM = "flash_attention_fwd"               # fp32, CUDA cores
@@ -104,6 +106,9 @@ def flash_attention_fwd(q, k, v, *, causal=True, window=None, softcap=None):
         0.0 if softcap is None else float(softcap), _build.stream_ptr(q))
     _build.check(stem, rc)
     flash_attention_fwd.launches += 1
+    roofline.add_kernel_work("flash_attention_fwd", lambda: (
+        roofline.attention_work(B, S, T, N, H, q.element_size(),
+                                causal=causal, window=window)))
     return o
 
 

@@ -3,7 +3,8 @@ codec: the tensor is flattened and cut into `BLOCK`-wide rows, the last
 one padded with zeros.
 
 On a CUDA tensor each function launches its kernel (`csrc/grad_quant.cu`)
-and adds one to its `launches` count; on a CPU tensor it runs the plain
+and adds one to its `launches` count (and its work to an active
+`launch.roofline.WorkCounter`); on a CPU tensor it runs the plain
 version in `ref.py`. There is no other path.
 """
 from __future__ import annotations
@@ -15,6 +16,7 @@ import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels.grad_quant import ref as R
+from repro_torch.launch import roofline
 
 BLOCK = 2048
 _STEM = "grad_quant"
@@ -70,6 +72,8 @@ def quantize(x):
                                     _build.stream_ptr(x))
     _build.check(_STEM, rc)
     quantize.launches += 1
+    roofline.add_kernel_work("quantize",
+                             lambda: roofline.codec_work(n, nb, BLOCK))
     return q, scales
 
 
@@ -96,6 +100,8 @@ def dequantize(q, scales, shape, dtype=torch.float32):
                                       _build.stream_ptr(q))
     _build.check(_STEM, rc)
     dequantize.launches += 1
+    roofline.add_kernel_work("dequantize", lambda: roofline.codec_work(
+        n, nb, BLOCK, dequantize=True))
     return out.reshape(shape).to(dtype)
 
 

@@ -7,7 +7,8 @@ same kernel source (`csrc/rglru_scan.cu`) that walks the output
 gradient from the end, g_t = gh_t + exp(log_a_{t+1}) g_{t+1}, and writes
 db = g and dlog_a_t = g_t exp(log_a_t) h_{t-1} in the same pass.
 `rglru_scan_reverse` is the reverse scan alone. On a CUDA tensor each
-wrapper launches its kernel and adds one to its own `launches` count; on
+wrapper launches its kernel and adds one to its own `launches` count
+(and its work to an active `launch.roofline.WorkCounter`); on
 a CPU tensor it runs the plain version in `ref.py`. There is no other
 path.
 
@@ -24,6 +25,7 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.kernels.rglru.ref import (rglru_scan_bwd_ref, rglru_scan_ref,
                                            rglru_scan_reverse_ref)
+from repro_torch.launch import roofline
 
 _STEM = "rglru_scan"
 
@@ -97,6 +99,8 @@ def rglru_scan_fwd(log_a, b):
         return rglru_scan_ref(log_a, b)
     h = _launch(log_a, b, reverse=False)
     rglru_scan_fwd.launches += 1
+    roofline.add_kernel_work("rglru_scan_fwd",
+                             lambda: roofline.rglru_work(h.numel()))
     return h
 
 
@@ -106,6 +110,8 @@ def rglru_scan_reverse(log_a, g):
         return rglru_scan_reverse_ref(log_a, g)
     out = _launch(log_a, g, reverse=True)
     rglru_scan_reverse.launches += 1
+    roofline.add_kernel_work("rglru_scan_reverse",
+                             lambda: roofline.rglru_work(out.numel()))
     return out
 
 
@@ -124,6 +130,8 @@ def rglru_scan_bwd(log_a, h, gh):
         *dlog_a.stride(), _build.stream_ptr(gh))
     _build.check(_STEM, rc)
     rglru_scan_bwd.launches += 1
+    roofline.add_kernel_work("rglru_scan_bwd", lambda: roofline.rglru_work(
+        db.numel(), backward=True))
     return dlog_a, db
 
 

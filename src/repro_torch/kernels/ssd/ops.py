@@ -3,8 +3,9 @@ and B and C per group, (b,s,g,n), head h reading group h // (h_total//g).
 
 Differentiable through `torch.autograd.Function`: the forward is
 `ssd_fwd`, which on a CUDA tensor launches one of two kernels (adding one
-to its `launches` count) and on a CPU tensor runs the plain version in
-`ref.py`. `route` picks the kernel by dtype and head dim: bf16 with p a
+to its `launches` count, and its work to an active
+`launch.roofline.WorkCounter`) and on a CPU tensor runs the plain
+version in `ref.py`. `route` picks the kernel by dtype and head dim: bf16 with p a
 multiple of 8 up to 128 goes to `csrc/ssd_fwd_sm90.cu`, on the tensor
 cores (also counted in `sm90_launches`); fp32, and bf16 of any other p,
 to `csrc/ssd_fwd.cu`, on the CUDA cores. The backward recomputes the
@@ -23,10 +24,14 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.kernels._tma import map_strides, tma_ready
 from repro_torch.kernels.ssd.ref import ssd_reference
+from repro_torch.launch import roofline
 
 STATE_DIMS = (16, 32, 64, 128)
 MAX_CHUNK = 256
 MAX_P_SM90 = 128
+# rows of the pieces the tensor-core kernel cuts the sequence into,
+# whatever chunk the caller names
+SM90_PIECE = 128
 _STEM = "ssd_fwd"                 # fp32 and other bf16, CUDA cores
 _STEM_SM90 = "ssd_fwd_sm90"       # bf16, tensor cores
 
@@ -97,6 +102,8 @@ def ssd_fwd(xbar, log_a, Bm, Cm, *, chunk=256):
     b, s, h, p = xbar.shape
     g, n = Bm.shape[2], Bm.shape[3]
     stem = route(xbar.dtype, p)
+    # the rows of the chunks the launched kernel runs
+    run_chunk = min(chunk, SM90_PIECE if stem == _STEM_SM90 else s)
     y = torch.empty((b, s, h, p), dtype=xbar.dtype, device=xbar.device)
     if stem == _STEM_SM90:
         # TMA reads x, B and C as they lie, or a contiguous copy where
@@ -118,6 +125,8 @@ def ssd_fwd(xbar, log_a, Bm, Cm, *, chunk=256):
     _build.check(stem, rc)
     ssd_fwd.launches += 1
     ssd_fwd.sm90_launches += int(stem == _STEM_SM90)
+    roofline.add_kernel_work("ssd_fwd", lambda: roofline.ssd_work(
+        b, s, h, p, g, n, run_chunk, y.element_size()))
     return y
 
 

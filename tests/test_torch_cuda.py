@@ -517,3 +517,90 @@ def test_smoke_model_gradients_match_the_plain_versions(gen, arch,
     assert loss == pytest.approx(plain_loss, rel=1e-6)
     for k, a, b in zip(params, grads, plain_grads):
         assert (a - b).abs().max() <= 1e-4 * b.abs().max(), k
+
+
+def test_each_kernel_adds_its_work_once_a_launch(gen):
+    """Under a `WorkCounter` every launch adds its own formula's FLOPs and
+    bytes once, under its wrapper's name, and the modes see no product
+    of the kernels' own."""
+    from repro_torch.launch import roofline as R
+
+    q, k, v = (_randn(gen, 2, 256, 2, 64, dtype=torch.bfloat16)
+               for _ in range(3))
+    x = _randn(gen, 5000)
+    xs, la_s, Bm, Cm = _ssd_bf16_inputs(gen, 1, 300, 2, 64, 1, 64)
+    la, u = _rglru_inputs(gen, 2, 100, 24)
+    n_blocks = -(-5000 // gq.BLOCK)
+    cases = [
+        ("flash_attention_fwd",
+         lambda: fa.flash_attention_fwd(q, k, v, window=100),
+         R.attention_work(2, 256, 256, 2, 64, 2, window=100)),
+        ("quantize", lambda: gq.quantize(x),
+         R.codec_work(5000, n_blocks, gq.BLOCK)),
+        ("dequantize", lambda: gq.dequantize(*gq.quantize(x), x.shape),
+         R.codec_work(5000, n_blocks, gq.BLOCK, dequantize=True)),
+        # the tensor-core kernel runs 128-row pieces whatever the chunk
+        ("ssd_fwd", lambda: sd.ssd_fwd(xs, la_s, Bm, Cm, chunk=256),
+         R.ssd_work(1, 300, 2, 64, 1, 64, sd.SM90_PIECE, 2)),
+        ("rglru_scan_fwd", lambda: rg.rglru_scan_fwd(la, u),
+         R.rglru_work(la.numel())),
+        ("rglru_scan_reverse", lambda: rg.rglru_scan_reverse(la, u),
+         R.rglru_work(la.numel())),
+        ("rglru_scan_bwd", lambda: rg.rglru_scan_bwd(la, u, u),
+         R.rglru_work(la.numel(), backward=True)),
+    ]
+    for name, fn, (flops, nbytes) in cases:
+        with R.WorkCounter() as wc:
+            fn()
+        torch.cuda.synchronize()
+        assert wc.kernels[name] == [1, float(flops), float(nbytes)], name
+        assert wc.aten_flops == 0, name
+
+
+def _runner_run(device, quantize):
+    """The port's runner driving phi3 SMOKE hooks on `device` for two
+    rounds, on a market that prices egress: its result and trace."""
+    from repro_torch.common.config import (CloudConfig, ClientProfile,
+                                           FLRunConfig, MarketConfig,
+                                           ProviderConfig)
+    from repro_torch.fl.runner import FLCloudRunner
+    from repro_torch.fl.training import TorchTrainerHooks
+
+    names = ("client_0", "client_1")
+    hooks = TorchTrainerHooks(names, local_steps=2, batch=2, seq=64,
+                              quantize=quantize, device=device)
+    market = MarketConfig(providers=(ProviderConfig(
+        name="aws", on_demand_rate=1.0, spot_rate_mean=0.4,
+        spot_rate_sigma=0.0, update_egress_usd_per_mb=0.001,
+        uplink_mbps=100.0),))
+    cfg = FLRunConfig(
+        dataset="t", n_epochs=2, policy="fedcostaware", seed=0,
+        quantize_updates=quantize,
+        clients=tuple(ClientProfile(n, mean_epoch_s=60.0 + 30.0 * i,
+                                    jitter=0.0)
+                      for i, n in enumerate(names)))
+    runner = FLCloudRunner(cfg, cloud_cfg=CloudConfig(spot_rate_sigma=0.0,
+                                                      market=market),
+                           hooks=hooks, record=True)
+    res = runner.run()
+    assert len(hooks.losses) == 2
+    return res, runner.recorder.dumps()
+
+
+@pytest.mark.parametrize("quantize", [False, True])
+def test_runner_on_the_card_bills_as_on_the_cpu(gen, quantize):
+    """The dollars depend only on the profiles and the payload bytes, so
+    the card's run must reproduce the CPU's exactly."""
+    got, got_trace = _runner_run("cuda", quantize)
+    want, want_trace = _runner_run("cpu", quantize)
+    assert got.comm_cost > 0.0
+    assert got.total_cost == pytest.approx(want.total_cost, abs=1e-9)
+    assert got.comm_cost == pytest.approx(want.comm_cost, abs=1e-9)
+    assert got.per_round_participants == want.per_round_participants
+    assert got_trace == want_trace
+
+
+def test_measured_peaks_on_the_card(gen):
+    from repro_torch.fl.training import _measure_peaks
+    flops_s, bw = _measure_peaks("cuda")
+    assert flops_s > 100e12 and bw > 1e12, (flops_s, bw)

@@ -2,9 +2,10 @@
 SMOKE sizes of phi3, mamba2 and recurrentgemma in fp32: FL rounds of
 `TorchTrainerHooks(device="cpu")` against a
 single-device JAX reference built from the JAX package's own pieces, the
-JAX package's `FLCloudRunner` driving the port's hooks to the same
-dollars and event trace, and the port's rules (no JAX or `repro`
-import, no silent CPU fallback)."""
+port's `FLCloudRunner` driving the port's hooks to the dollars and event
+trace of the JAX package's runner, on the sync and the async_buffered
+engine, and the port's rules (no JAX or `repro` import, no silent CPU
+fallback)."""
 import ast
 import dataclasses
 from pathlib import Path
@@ -18,18 +19,19 @@ import jax
 import jax.numpy as jnp
 
 from repro import configs as jconfigs
-from repro.common.config import (CloudConfig, ClientProfile, FLRunConfig,
-                                 MarketConfig, ProviderConfig)
+from repro.common import config as jax_config
 from repro.comms.payload import UpdatePayload as JaxPayload
 from repro.data.synthetic import token_stream as jax_token_stream
-from repro.fl.runner import FLCloudRunner
+from repro.fl.runner import FLCloudRunner as JaxRunner
 from repro.fl.server import JaxTrainerHooks
 from repro.fl.training import MeshTrainerHooks
 from repro.fl.types import TrainerHooks as JaxTrainerHooksProtocol
 from repro.kernels.grad_quant import ops as jgq
 from repro.models import lm as jlm
 from repro_torch.common import bridge
+from repro_torch.common import config as port_config
 from repro_torch.data.synthetic import token_stream
+from repro_torch.fl.runner import FLCloudRunner as PortRunner
 from repro_torch.fl.training import TorchTrainerHooks
 
 REPO = Path(__file__).resolve().parents[1]
@@ -204,11 +206,6 @@ class TestHooksMatchJaxReference:
                 np.testing.assert_array_equal(x[k], y[k])
 
 
-# egress priced and uplink modeled, so the runs bill a nonzero comm_cost
-COMM_MARKET = MarketConfig(providers=(
-    ProviderConfig(name="aws", on_demand_rate=1.0, spot_rate_mean=0.4,
-                   spot_rate_sigma=0.0,
-                   update_egress_usd_per_mb=0.001, uplink_mbps=100.0),))
 
 
 class _PayloadOnly(JaxTrainerHooksProtocol):
@@ -225,32 +222,54 @@ class _PayloadOnly(JaxTrainerHooksProtocol):
         return JaxPayload.from_tree(self.tree, quantized=quantized)
 
 
-def _run(hooks, quantize, record_to):
-    clients = tuple(ClientProfile(n, mean_epoch_s=60.0 + 30.0 * i, jitter=0.0)
+def _run(runner, C, hooks, quantize, engine, record_to):
+    """One 2-round run of `runner` built from the config module `C` (the
+    port's or the JAX package's), on a market that prices egress and
+    models an uplink, so the run bills a nonzero comm_cost."""
+    market = C.MarketConfig(providers=(
+        C.ProviderConfig(name="aws", on_demand_rate=1.0, spot_rate_mean=0.4,
+                         spot_rate_sigma=0.0, update_egress_usd_per_mb=0.001,
+                         uplink_mbps=100.0),))
+    clients = tuple(C.ClientProfile(n, mean_epoch_s=60.0 + 30.0 * i,
+                                    jitter=0.0)
                     for i, n in enumerate(NAMES))
-    cfg = FLRunConfig(dataset="t", clients=clients, n_epochs=2,
-                      policy="fedcostaware", seed=0, quantize_updates=quantize)
-    cloud = CloudConfig(spot_rate_sigma=0.0, market=COMM_MARKET)
-    return FLCloudRunner(cfg, cloud_cfg=cloud, hooks=hooks,
-                         record_to=record_to).run()
+    cfg = C.FLRunConfig(dataset="t", clients=clients, n_epochs=2,
+                        policy="fedcostaware", seed=0,
+                        quantize_updates=quantize, engine=engine)
+    cloud = C.CloudConfig(spot_rate_sigma=0.0, market=market)
+    return runner(cfg, cloud_cfg=cloud, hooks=hooks,
+                  record_to=record_to).run()
 
 
-@pytest.mark.parametrize("model", MODELS)
-@pytest.mark.parametrize("quantize", [False, True])
+# (quantize, model, engine): the policy's own sync engine under the ids
+# these cases have always had, and the async_buffered engine
+RUNNER_CASES = [
+    pytest.param(quantize, model, engine,
+                 id=f"{quantize}-{model}" + (f"-{engine}" if engine else ""))
+    for engine in (None, "async_buffered")
+    for quantize in (False, True) for model in MODELS]
+
+
+@pytest.mark.parametrize("quantize,model,engine", RUNNER_CASES)
 def test_cloud_runner_bills_the_port_like_the_jax_package(quantize, model,
-                                                         tmp_path):
+                                                         engine, tmp_path):
+    """The port's runner with the port's hooks against the JAX package's
+    runner with a payload-only stub of the same parameter tree."""
     hooks = _hooks(quantize, model=model)
-    got = _run(hooks, quantize, tmp_path / "port.events.jsonl")
+    got = _run(PortRunner, port_config, hooks, quantize, engine,
+               tmp_path / "port.events.jsonl")
     stub = _PayloadOnly(jlm.init_params(jconfigs.get_config(model, smoke=True),
                                         jax.random.PRNGKey(0)))
-    want = _run(stub, quantize, tmp_path / "jax.events.jsonl")
+    want = _run(JaxRunner, jax_config, stub, quantize, engine,
+                tmp_path / "jax.events.jsonl")
     assert got.comm_cost > 0.0
     assert got.total_cost == pytest.approx(want.total_cost, abs=1e-9)
     assert got.comm_cost == pytest.approx(want.comm_cost, abs=1e-9)
     assert got.per_round_participants == want.per_round_participants
     assert (tmp_path / "port.events.jsonl").read_bytes() == \
         (tmp_path / "jax.events.jsonl").read_bytes()
-    assert len(hooks.losses) == 2 and np.isfinite(hooks.final_loss())
+    assert len(hooks.losses) == len(got.per_round_participants) == 2
+    assert np.isfinite(hooks.final_loss())
 
 
 def _imported_roots(path):

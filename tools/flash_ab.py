@@ -6,7 +6,9 @@ it, for one checkout of the port on one CUDA card.
                               [--label NAME]
 
 DIR is the `src` directory of the checkout to time (default: this
-checkout's). The shapes, paths and device timing are `chip_smoke.py`'s
+checkout's; its package must define
+`repro_torch.benchmarks.table1.MAIN_PATHS`, whose sizes the rounds
+take). The kernel shapes and device timing are `chip_smoke.py`'s
 (`device_ms`: the calls queued behind a sleep kernel, so the host's
 time to issue them is left out); `kernel_ms` is the same calls issued
 as fast as the host issues them, with nothing queued before. With
@@ -25,7 +27,6 @@ checkouts on one card, run it on each in turns (A, B, B, A) on that
 card. It needs a card and exits non-zero without one.
 """
 import argparse
-import dataclasses
 import json
 import os
 import subprocess
@@ -105,7 +106,7 @@ def main():
     if not torch.cuda.is_available():
         sys.exit("flash_ab: no CUDA card")
     sys.path.insert(0, os.path.abspath(args.src))
-    from repro_torch import configs
+    from repro_torch.benchmarks.table1 import LOCAL_STEPS, main_path
     from repro_torch.fl.training import TorchTrainerHooks
 
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -116,13 +117,10 @@ def main():
         result["kernel_ms"][name] = _host_ms(call)
         result["device_ms"][name] = smoke._time_ms(call, iters=20, warmup=3)
     torch.cuda.empty_cache()
-    for arch, layers, batch, seq, _ in smoke.PATHS:
-        if arch not in archs:
-            continue
-        cfg = dataclasses.replace(configs.get_config(arch),
-                                  num_layers=layers)
+    for arch in archs:
+        cfg, batch, seq = main_path(arch)
         hooks = TorchTrainerHooks(smoke.CLIENTS, cfg=cfg,
-                                  local_steps=smoke.LOCAL_STEPS,
+                                  local_steps=LOCAL_STEPS,
                                   batch=batch, seq=seq, lr=smoke.LR,
                                   quantize=True, seed=0, device="cuda")
         result["round_s"][arch] = hooks.measure_round_s(warmup=1, iters=2)

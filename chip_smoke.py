@@ -35,6 +35,19 @@ ssd launches must all go to the tensor-core kernel, and recurrentgemma's
 backward must run the fused RG-LRU backward, never the reverse scan
 alone.
 
+Then the paper's own CNN path (`phase_paper_path`), which runs no kernel
+of the port's (cuDNN and cuBLAS; the counts must stay 0): the MNIST row
+of Table I in full as `repro_torch.examples.paper_reproduction` runs it
+(small_cnn, 3 clients, 10 epochs, on_demand, spot and fedcostaware, a
+checkpoint every 5 batches), one FedCostAware round of resnet18
+(CIFAR-10) and of resnet50 (AI-READI) at full width, and a local epoch
+of efficientnet (Fed-ISIC2019). Each run's dollars (to 1e-9) and trace
+(byte for byte) must equal the same runner's on the CPU over a
+`ServerTrainerHooks` stub, the MNIST global models must reach accuracy
+0.8, and each model's client training on the card must equal the CPU's
+(`PAPER_PARITY`); each model's local epoch is timed on the host clock,
+with CUDA events and under `torch.profiler`.
+
 Any failure exits non-zero. Without a CUDA device, or outside a
 checkout, it exits non-zero before printing any result. The last two
 lines of standard output are the card's name and power limit as
@@ -805,6 +818,323 @@ def phase_small_reference(arch):
               f"ulps)")
 
 
+# The paper's CNN path (`repro_torch.examples.paper_reproduction`): each
+# Table I dataset's model at the data sizes the repo runs it at, and the
+# phases that run it; "row" is the MNIST row in full (3 policies x 10
+# epochs), "round" one FedCostAware round (sync engine), "epoch" a local
+# epoch only
+PAPER_RUNS = (("mnist", "row"), ("cifar10", "round"), ("aireadi", "round"),
+              ("isic2019", "epoch"))
+PAPER_ACC = 0.8     # the reference's `tests/test_fl.py::test_fl_learns` bar
+# How a model's local training on the card is held to the CPU's: its
+# forward and backward precision, and whether over one step only (else
+# the smallest client's whole epoch). small_cnn's fp32 epoch is well
+# conditioned. The deeper models' fp32 runs part ways from any other
+# correct run within an epoch: a ReLU whose input lies within rounding
+# of 0 passes or stops its gradient at random, and adamw turns a small
+# gradient's noise into a full step. In float64 the card's epoch still
+# parts from the CPU's, seeded in adamw's fp32 path. So they are held
+# over one step, in float64: the gradients, and the parameters after
+# adamw's step. `tools/cnn_fp32_spread.py` measures each of these.
+PAPER_PARITY = {"small_cnn": (torch.float32, False),
+                "resnet18": (torch.float64, True),
+                "resnet50": (torch.float64, True),
+                "efficientnet": (torch.float64, True)}
+
+
+def _paper_client(fed, i, device, dtype=torch.float32, batches=None):
+    """Client `i` of `fed` on `device`, its batches in `dtype`, the first
+    `batches` of each epoch only (all when None)."""
+    import itertools
+    from repro_torch.data.synthetic import minibatches
+    from repro_torch.fl.client import FLClient
+    from repro_torch.optim.optimizers import adamw
+
+    idx = fed.parts[i]
+    np_dtype = {torch.float32: "float32", torch.float64: "float64"}[dtype]
+
+    def data_fn(r):
+        for x, y in itertools.islice(
+                minibatches(fed.ds, idx, 32, seed=100 * r + i), batches):
+            yield x.astype(np_dtype), y
+    return FLClient(f"client_{i}", fed.apply_fn, adamw(lr=1e-3), data_fn,
+                    len(idx), device=device)
+
+
+def _paper_stub(fed):
+    """`ServerTrainerHooks` on the CPU over clients that train nothing:
+    the dollars and the trace depend only on the profiles."""
+    from repro_torch.common.bridge import tree_map
+    from repro_torch.fl.server import FederatedServer, ServerTrainerHooks
+    params = tree_map(lambda t: t.cpu(), fed.params0)
+    return ServerTrainerHooks(
+        FederatedServer(params),
+        {f"client_{i}": _paper_client(fed, i, "cpu", batches=0)
+         for i in range(len(fed.parts))}, device="cpu")
+
+
+def _check_paper_dollars(fed, policy, res, trace, n_epochs):
+    from repro_torch.examples.paper_reproduction import run_policy
+    want, want_trace = run_policy(fed, policy, _paper_stub(fed), n_epochs,
+                                  record=True)
+    _check(abs(res.total_cost - want.total_cost) <= 1e-9,
+           f"{fed.dataset} {policy}: card run ${res.total_cost!r}, CPU stub "
+           f"${want.total_cost!r}")
+    _check(trace == want_trace, f"{fed.dataset} {policy}: the card run's "
+           f"event trace differs from the CPU stub's")
+    _check(res.rounds_completed == n_epochs,
+           f"{fed.dataset} {policy}: {res.rounds_completed} rounds")
+    return len(trace.encode())
+
+
+def _paper_grads(fed, i, device, dtype):
+    """The clients' cross-entropy gradient on client `i`'s first batch
+    from the initial weights, by leaf, on the CPU."""
+    from repro_torch.common.bridge import (flatten_with_paths, leaves,
+                                           tree_map, unflatten_as)
+    from repro_torch.data.synthetic import minibatches
+    x, y = next(minibatches(fed.ds, fed.parts[i], 32, seed=i))
+    params = tree_map(lambda t: t.to(device, dtype), fed.params0)
+    live = [t.detach().clone().requires_grad_(True) for t in leaves(params)]
+    logits = fed.apply_fn(unflatten_as(params, live),
+                          torch.from_numpy(x).to(device, dtype))
+    logp = torch.log_softmax(logits, -1)
+    y = torch.from_numpy(y).to(device, torch.int64)
+    loss = -torch.mean(torch.gather(logp, 1, y[:, None]))
+    grads = torch.autograd.grad(loss, live)
+    return {k: g.cpu() for (k, _), g in zip(flatten_with_paths(params),
+                                            grads)}
+
+
+def _grad_ratios(got, want):
+    """Each leaf's max |got - want| over its bar: 1e-4 of the leaf's
+    largest entry in `want`, at least 1e-9 of the model's largest
+    (EfficientNet's `bn_pw` biases feed a 1x1 conv and a batch norm,
+    which removes a shift: their gradient is rounding only)."""
+    top = max(w.abs().max().item() for w in want.values())
+    return {k: (got[k] - w).abs().max().item()
+            / (1e-4 * max(w.abs().max().item(), 1e-9 * top))
+            for k, w in want.items()}
+
+
+def _update_ratios(got, want, init):
+    """Each leaf's max |got - want| over the multi-step bar: 2% of the
+    leaf's largest update in `want` (at least a millionth of the model's
+    largest) plus 2 fp32 ulps of its largest entry (the parameters are
+    fp32 values: adamw rounds each step to fp32); and the leaves `want`
+    moves by more than that ulp but `got` leaves where they were."""
+    updates = {k: (w - init[k]).abs().max().item() for k, w in want.items()}
+    floor = 1e-6 * max(updates.values())
+    ratios, stuck = {}, []
+    for k, w in want.items():
+        ulp = torch.finfo(torch.float32).eps * w.abs().max().item()
+        ratios[k] = (got[k] - w).abs().max().item() / (
+            2e-2 * max(updates[k], floor) + 2 * ulp)
+        if updates[k] > ulp and torch.equal(got[k], init[k]):
+            stuck.append(k)
+    return ratios, stuck
+
+
+def _worst(ratios):
+    leaf = max(ratios, key=ratios.get)
+    return ratios[leaf], leaf
+
+
+def _paper_train(fed, i, device, dtype, batches):
+    """Client `i`'s local epoch (its first `batches` batches when not
+    None) from the initial weights: the final parameters by leaf on the
+    CPU in float64, the mean loss, the host seconds and the batches."""
+    from repro_torch.common.bridge import flatten_with_paths, tree_map
+    init = tree_map(lambda t: t.to(device, dtype), fed.params0)
+    t0 = time.perf_counter()
+    params, m = _paper_client(fed, i, device, dtype, batches) \
+        .train_epoch(init, 0)
+    return ({k: v.cpu().double() for k, v in flatten_with_paths(params)},
+            m.loss, time.perf_counter() - t0, m.n_batches)
+
+
+def _paper_init(fed):
+    from repro_torch.common.bridge import flatten_with_paths
+    return {k: v.cpu().double() for k, v in flatten_with_paths(fed.params0)}
+
+
+def _paper_parity(fed, model):
+    """Client training on the card against the CPU from the initial
+    weights, on the smallest client, as `PAPER_PARITY` says: every
+    parameter within the multi-step bar (`_update_ratios`) and the same
+    loss to 1e-5; over one step the gradients too (`_grad_ratios`)."""
+    dtype, one_step = PAPER_PARITY[model]
+    batches = 1 if one_step else None
+    i = min(range(len(fed.parts)), key=lambda j: len(fed.parts[j]))
+    what = "first step" if one_step else "local epoch"
+    if one_step:
+        worst, leaf = _worst(_grad_ratios(
+            _paper_grads(fed, i, "cuda", dtype),
+            _paper_grads(fed, i, "cpu", dtype)))
+        _check(worst <= 1, f"{model} gradient card vs CPU ({dtype}): {leaf} "
+               f"at {worst:.3e} of the bar")
+        print(f"[paper] {model} client_{i} gradients of the first batch, "
+              f"card vs CPU in {dtype}: within {worst:.3e} of the bar "
+              f"({leaf}; 1e-4 of the leaf's largest entry)")
+    gpu, gpu_loss, _, nb = _paper_train(fed, i, "cuda", dtype, batches)
+    cpu, cpu_loss, cpu_s, _ = _paper_train(fed, i, "cpu", dtype, batches)
+    ratios, stuck = _update_ratios(gpu, cpu, _paper_init(fed))
+    worst, leaf = _worst(ratios)
+    _check(not stuck, f"{model}: {stuck} did not move on the card")
+    _check(worst <= 1, f"{model} {what} card vs CPU ({dtype}): {leaf} at "
+           f"{worst:.3f} of the bar")
+    _check(abs(gpu_loss - cpu_loss) <= 1e-5 * abs(cpu_loss),
+           f"{model}: loss card {gpu_loss!r}, CPU {cpu_loss!r}")
+    print(f"[paper] {model} client_{i} {what} ({nb} x 32 images) card vs "
+          f"CPU in {dtype}: loss {gpu_loss:.6f} vs {cpu_loss:.6f}; params "
+          f"within {worst:.4f} of the bar ({leaf}); CPU {cpu_s:.2f} s")
+
+
+# batches of the largest client's epoch run under `torch.profiler`: one
+# checkpoint's worth (tracing a whole epoch's ops costs more than the
+# epoch)
+PAPER_PROFILED = 5
+
+
+def _paper_epoch_times(fed, model, gpu_name):
+    """Host and device time, images/s and peak memory of the largest
+    client's local epoch (a sync round's critical path) as the path runs
+    it: fp32, a checkpoint every 5 batches; the median of 3 after a
+    warm-up. Then its first `PAPER_PROFILED` batches under
+    `torch.profiler`: the device's busy share of them, and the ops that
+    kept it busy longest."""
+    import itertools
+    import statistics
+    from torch.profiler import ProfilerActivity, profile
+    i = max(range(len(fed.parts)), key=lambda j: len(fed.parts[j]))
+    client = fed.clients()[f"client_{i}"]
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    host, dev = [], []
+    for rep in range(4):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        start.record()
+        _, m = client.train_epoch(fed.params0, rep)
+        end.record()
+        torch.cuda.synchronize()
+        if rep:
+            host.append(time.perf_counter() - t0)
+            dev.append(start.elapsed_time(end) / 1e3)
+    peak = (torch.cuda.max_memory_allocated() - base) / 1e9
+    epoch_data = client.data_fn
+    client.data_fn = lambda r: itertools.islice(epoch_data(r),
+                                                PAPER_PROFILED)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        client.train_epoch(fed.params0, 4)
+        torch.cuda.synchronize()
+        window = time.perf_counter() - t0
+    client.data_fn = epoch_data
+    # the device's own events (kernels, copies, sets)
+    ops = [(e.key, getattr(e, "self_device_time_total",
+                           getattr(e, "self_cuda_time_total", 0)) / 1e6)
+           for e in prof.key_averages()
+           if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy = sum(t for _, t in ops)
+    top = sorted(ops, key=lambda kv: -kv[1])[:5]
+    h, d = statistics.median(host), statistics.median(dev)
+    n = client.n_samples // 32 * 32
+    print(f"[paper] {model} {fed.dataset} local epoch of {client.name} "
+          f"({m.n_batches} batches of 32, {n} images): host {h:.4f} s "
+          f"(median of {host}), {n / h:.1f} images/s; device (CUDA events "
+          f"around the epoch) {d:.4f} s (median of {dev}); peak device "
+          f"memory {peak:.3f} GB above the {base / 1e9:.3f} GB held before "
+          f"it; {gpu_name}")
+    print(f"[paper] {model} profiled first {PAPER_PROFILED} batches of "
+          f"that epoch (one checkpoint): {window:.4f} s on the host clock "
+          f"under the profiler, device busy {busy:.4f} s "
+          f"({100 * busy / window:.1f}%); longest on the device: "
+          + ", ".join(f"{k[:60]} {t:.4f} s" for k, t in top))
+
+
+def phase_paper_path():
+    """The paper's CNN path on the card: (a) the MNIST row of Table I in
+    full, as `repro_torch.examples.paper_reproduction` runs it; (b) one
+    FedCostAware round of resnet18 (CIFAR-10) and of resnet50
+    (AI-READI); (c) a local epoch of efficientnet (Fed-ISIC2019). Every
+    run's dollars and trace equal the CPU stub's, the MNIST models reach
+    the reference's accuracy bar, each model's client training on the
+    card equals the CPU's (`PAPER_PARITY`), and each model's local epoch
+    is timed."""
+    from repro_torch.common.bridge import leaves
+    from repro_torch.data.synthetic import DATASET_SPECS
+    from repro_torch.examples import paper_reproduction as PR
+
+    gpu_name = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+    t_phase = time.perf_counter()
+    counters = _reset_counters()
+    for dataset, what in PAPER_RUNS:
+        model = PR.MODELS[dataset]
+        t0 = time.perf_counter()
+        if what == "row":
+            fed, rows = PR.run("cuda", record=True)
+            for row in rows:
+                nbytes = _check_paper_dollars(fed, row["policy"],
+                                              row["result"], row["trace"],
+                                              PR.N_EPOCHS)
+                losses = [r["mean_client_loss"]
+                          for r in row["server"].history]
+                _check(row["acc"] >= PAPER_ACC and all(
+                    math.isfinite(x) for x in losses),
+                       f"mnist {row['policy']}: accuracy {row['acc']}, "
+                       f"losses {losses}")
+                print(f"[paper] mnist {row['policy']}: total "
+                      f"${row['result'].total_cost!r} (paper "
+                      f"${PR.PAPER[row['policy']]}), equal to the CPU stub's "
+                      f"(to 1e-9), trace of {nbytes} bytes equal byte for "
+                      f"byte; accuracy on the first 512 images "
+                      f"{row['acc']:.4f} (bar {PAPER_ACC}); mean client "
+                      f"loss by round {[round(x, 4) for x in losses]}")
+        else:
+            fed = PR.Federation(dataset, 1500, "cuda")
+            if what == "round":
+                hooks = fed.hooks()
+                res, trace = PR.run_policy(fed, "fedcostaware", hooks,
+                                           n_epochs=1, record=True)
+                nbytes = _check_paper_dollars(fed, "fedcostaware", res,
+                                              trace, 1)
+                loss = hooks.server.history[-1]["mean_client_loss"]
+                _check(math.isfinite(loss), f"{model}: round loss {loss}")
+                print(f"[paper] {model} {dataset} one FedCostAware round: "
+                      f"total ${res.total_cost!r}, equal to the CPU stub's "
+                      f"(to 1e-9), trace of {nbytes} bytes equal; mean "
+                      f"client loss {loss:.6f}")
+        img, ch, nc = DATASET_SPECS[dataset]
+        n_params = sum(t.numel() for t in leaves(fed.params0))
+        print(f"[paper] {model} at {dataset}'s ({img}, {ch}, {nc}): "
+              f"{n_params} parameters; client sizes "
+              f"{[len(p) for p in fed.parts]}; "
+              + ("set-up" if what == "epoch" else f"set-up and {what}")
+              + f" {time.perf_counter() - t0:.2f} s")
+        t1 = time.perf_counter()
+        _paper_parity(fed, model)
+        t2 = time.perf_counter()
+        _paper_epoch_times(fed, model, gpu_name)
+        print(f"[paper] {model}: parity {t2 - t1:.2f} s, timed and profiled "
+              f"epochs {time.perf_counter() - t2:.2f} s")
+        del fed
+    torch.cuda.synchronize()
+    launches = {name: fn.launches for name, fn in counters.items()}
+    _check(not any(launches.values()),
+           f"the paper's path launched the LM kernels: {launches}")
+    print(f"[paper] launches of the port's kernels during the paper's path: "
+          f"{launches} (the CNN path runs cuDNN and cuBLAS only); phase "
+          f"{time.perf_counter() - t_phase:.1f} s")
+
+
 def _total_launches(path_launches):
     return {name: sum(c[name] for c in path_launches.values())
             for name in _counters()}
@@ -975,6 +1305,7 @@ def main():
         phase_real(arch)
     for arch in MAY_STAY:
         phase_small_reference(arch)
+    phase_paper_path()
     rows = phase_times(gen, path_launches, errs, deltas)
 
     smi = subprocess.run(

@@ -34,7 +34,6 @@ peaks measured on the hooks' device, and rewrites
 from __future__ import annotations
 
 import dataclasses
-import math
 import time
 from typing import Dict, List, Optional, Sequence
 
@@ -44,21 +43,14 @@ import torch
 from repro_torch import configs
 from repro_torch.common.bridge import flatten_with_paths, unflatten
 from repro_torch.common.config import ClientProfile, ModelConfig
+from repro_torch.common.device import require_device
 from repro_torch.comms.payload import UpdatePayload
 from repro_torch.data.synthetic import token_stream
+from repro_torch.fl.server import ServerTrainerHooks
 from repro_torch.fl.types import TrainerHooks
 from repro_torch.kernels.grad_quant import ops as gq
 from repro_torch.launch.roofline import WorkCounter, estimate_step_time
 from repro_torch.models import lm
-
-
-def _require_device(device) -> torch.device:
-    dev = torch.device(device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            "TorchTrainerHooks: no CUDA device is available; pass "
-            "device='cpu' to run the plain versions on the CPU")
-    return dev
 
 
 def _sync(dev: torch.device) -> None:
@@ -76,7 +68,7 @@ class TorchTrainerHooks(TrainerHooks):
                  lr: float = 5e-3, quantize: bool = False, seed: int = 0,
                  weights: Optional[Dict[str, float]] = None,
                  device="cuda", cfg: Optional[ModelConfig] = None):
-        self.device = _require_device(device)
+        self.device = require_device(device, "TorchTrainerHooks")
         self.clients = list(clients)
         self.slot = {c: i for i, c in enumerate(self.clients)}
         if len(self.slot) != len(self.clients):
@@ -103,13 +95,6 @@ class TorchTrainerHooks(TrainerHooks):
         return {k: torch.zeros(p.shape, dtype=torch.float32,
                                device=self.device)
                 for k, p in flatten_with_paths(self.params)}
-
-    @staticmethod
-    def staleness_discount(staleness: int) -> float:
-        """FedBuff (arXiv:2106.06639) polynomial staleness weight: a
-        fresh update keeps its full weight, an update `s` rounds stale
-        is discounted by 1/sqrt(1+s)."""
-        return 1.0 / math.sqrt(1.0 + max(staleness, 0))
 
     # ------------------------------------------------------------------
     # Round pieces.
@@ -165,7 +150,8 @@ class TorchTrainerHooks(TrainerHooks):
         mask = np.zeros(len(self.clients))
         for c in set(live):
             mask[self.slot[c]] = (self._base_w[self.slot[c]]
-                                  * self.staleness_discount(stale.get(c, 0)))
+                                  * ServerTrainerHooks.staleness_discount(
+                                      stale.get(c, 0)))
         w = torch.tensor(mask, dtype=torch.float32)
         wn = w / torch.clamp(torch.sum(w), min=1e-12)
 

@@ -604,3 +604,56 @@ def test_measured_peaks_on_the_card(gen):
     from repro_torch.fl.training import _measure_peaks
     flops_s, bw = _measure_peaks("cuda")
     assert flops_s > 100e12 and bw > 1e12, (flops_s, bw)
+
+
+def _cnn_epoch(model, dataset, device, dtype, n):
+    """One local epoch over `n` images (batches of 32) of `model` at
+    `dataset`'s size and full width, its forward and backward in
+    `dtype`: the initial and final parameters on the CPU, and the
+    epoch's loss."""
+    import numpy as np
+    from repro_torch.common.bridge import flatten_with_paths, tree_map
+    from repro_torch.data.synthetic import (DATASET_SPECS, make_dataset,
+                                            minibatches)
+    from repro_torch.fl.client import FLClient
+    from repro_torch.models import cnn
+    from repro_torch.optim.optimizers import adamw
+
+    img, ch, nc = DATASET_SPECS[dataset]
+    ds = make_dataset(dataset, n, seed=0)
+    params, fn, _ = cnn.build(model, torch.Generator().manual_seed(0), nc,
+                              ch, img, device=device)
+    params = tree_map(lambda t: t.to(dtype), params)
+    np_dtype = np.float64 if dtype == torch.float64 else np.float32
+
+    def data_fn(r):
+        for x, y in minibatches(ds, np.arange(n), 32, seed=r):
+            yield x.astype(np_dtype), y
+    out, m = FLClient("c", fn, adamw(lr=1e-3), data_fn, n,
+                      device=device).train_epoch(params, 0)
+    return ({k: v.cpu().double() for k, v in flatten_with_paths(params)},
+            {k: v.cpu().double() for k, v in flatten_with_paths(out)},
+            m.loss)
+
+
+# small_cnn's fp32 epoch is well conditioned. resnet18's is not: a ReLU
+# whose input lies within rounding of 0 passes or stops its gradient at
+# random, and adamw turns a small gradient's noise into a full step. Its
+# forward and backward run in float64, over one step: even in float64
+# the card's epoch parts from the CPU's, seeded in adamw's fp32 path
+# (`tools/cnn_fp32_spread.py` measures both)
+@pytest.mark.parametrize("model,dataset,dtype,n", [
+    ("small_cnn", "mnist", torch.float32, 96),
+    ("resnet18", "cifar10", torch.float64, 32)])
+def test_cnn_local_epoch_on_the_card_matches_the_cpu(gen, model, dataset,
+                                                     dtype, n):
+    """Every parameter within 2% of its leaf's largest update plus 2 fp32
+    ulps of its largest entry, and the same epoch loss to 1e-5."""
+    init, got, got_loss = _cnn_epoch(model, dataset, "cuda", dtype, n)
+    _, want, want_loss = _cnn_epoch(model, dataset, "cpu", dtype, n)
+    assert got_loss == pytest.approx(want_loss, rel=1e-5)
+    for k, w in want.items():
+        update = (w - init[k]).abs().max().item()
+        ulp = torch.finfo(torch.float32).eps * w.abs().max().item()
+        assert update <= ulp or not torch.equal(got[k], init[k]), k
+        assert (got[k] - w).abs().max().item() <= 2e-2 * update + 2 * ulp, k

@@ -179,11 +179,14 @@ def comm_market(row: Table1Row) -> MarketConfig:
 # The main path of each supported model on one card: full width, depth
 # cut to (layers), and the batch and sequence of each local step. mamba2
 # runs at the context it was trained at (8 chunks of 256), recurrentgemma
-# at twice its 2048 window, so the window masks. At SMOKE size a step is
-# the JAX package's, batch 4 of 16 tokens.
+# at twice its 2048 window, so the window masks; granite-moe-3b-a800m at
+# phi3's batch and sequence (4096 tokens a step: 32 dispatch groups of
+# 128). At SMOKE size a step is the JAX package's, batch 4 of 16 tokens;
+# every model of the registry has one.
 MAIN_PATHS = {"phi3-mini-3.8b": (2, 4, 1024),
               "mamba2-1.3b": (2, 2, 2048),
-              "recurrentgemma-2b": (3, 1, 4096)}
+              "recurrentgemma-2b": (3, 1, 4096),
+              "granite-moe-3b-a800m": (2, 4, 1024)}
 SMOKE_BATCH, SMOKE_SEQ = 4, 16
 # LM steps per client per simulated epoch, as in the JAX package
 LOCAL_STEPS = 2
@@ -200,6 +203,9 @@ def main_path(model: str = "phi3-mini-3.8b", layers: Optional[int] = None,
         cfg, batch, seq = (configs.get_config(model, smoke=True),
                            SMOKE_BATCH, SMOKE_SEQ)
     else:
+        if model not in MAIN_PATHS:
+            raise KeyError(f"{model!r} has no main path; known: "
+                           f"{list(MAIN_PATHS)} (any model runs --smoke)")
         depth, batch, seq = MAIN_PATHS[model]
         cfg = dataclasses.replace(configs.get_config(model),
                                   num_layers=depth)

@@ -1,7 +1,7 @@
 """Model configuration for the PyTorch port.
 
-Copies of `SSMConfig`, `RGLRUConfig` and `ModelConfig` from the JAX
-package's `common/config.py`, kept here because the port imports
+Copies of `MoEConfig`, `SSMConfig`, `RGLRUConfig` and `ModelConfig` from
+the JAX package's `common/config.py`, kept here because the port imports
 nothing from that package. Field names and derived properties are the
 same, so a config reads alike in both; `activation_dtype` and
 `param_torch_dtype` give torch dtypes.
@@ -18,7 +18,7 @@ Fields that only steer the JAX package's TPU path are left out:
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Optional, Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -33,7 +33,19 @@ RGLRU = "rglru"          # Griffin recurrent block (RG-LRU)
 
 SUPPORTED_KINDS = (ATTN, LOCAL_ATTN, CROSS_ATTN, MAMBA2, RGLRU)
 
-_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+# float64 serves numerics checks on the CPU (tools/lm_fp32_spread.py)
+_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
+           "float64": torch.float64}
+
+
+@dataclasses.dataclass(frozen=True)
+class MoEConfig:
+    num_experts: int
+    top_k: int
+    d_ff: int                      # per-expert hidden dim
+    capacity_factor: float = 1.25
+    group_size: int = 512          # tokens per dispatch group (GShard style)
+    router_jitter: float = 0.0
 
 
 @dataclasses.dataclass(frozen=True)
@@ -59,7 +71,8 @@ class RGLRUConfig:
 
 
 def torch_dtype(name: str) -> torch.dtype:
-    """The torch dtype for a config dtype string ("float32", "bfloat16")."""
+    """The torch dtype for a config dtype string ("float32", "bfloat16",
+    "float64")."""
     if name not in _DTYPES:
         raise ValueError(f"unsupported dtype {name!r}; known: {list(_DTYPES)}")
     return _DTYPES[name]
@@ -87,11 +100,13 @@ class ModelConfig:
     logit_softcap: Optional[float] = None
     # mlp
     mlp_kind: str = "swiglu"           # swiglu|gelu
-    # MoE sub-config; the port does not run MoE yet, and `models.lm`
-    # raises NotImplementedError when one is set
-    moe: Optional[Any] = None
+    # optional sub-configs
+    moe: Optional[MoEConfig] = None
     ssm: Optional[SSMConfig] = None
     rglru: Optional[RGLRUConfig] = None
+    # vlm / audio frontends (stub): number of conditioning tokens fed to
+    # cross-attention layers (vlm) or raw frame-embedding inputs (audio).
+    n_cond_tokens: int = 0
     # misc
     norm_eps: float = 1e-5
     tie_embeddings: bool = False

@@ -1,9 +1,8 @@
 """Architecture registry of the port: ``get_config(arch)`` resolves here.
 
 Each module exposes FULL (the published config) and SMOKE (a reduced
-same-family config that trains on the CPU in the tests). Only the
-architectures the port runs are listed; the others follow with the
-model families they need (ROADMAP §1, queued item 5).
+same-family config that trains on the CPU in the tests). The ten
+architectures of the JAX package's registry, in its order.
 """
 from __future__ import annotations
 
@@ -13,9 +12,16 @@ from typing import List
 from repro_torch.common.config import ModelConfig
 
 _MODULES = {
-    "phi3-mini-3.8b": "phi3_mini_3p8b",
     "mamba2-1.3b": "mamba2_1p3b",
+    "phi3-mini-3.8b": "phi3_mini_3p8b",
+    "glm4-9b": "glm4_9b",
+    "command-r-35b": "command_r_35b",
+    "qwen1.5-110b": "qwen1p5_110b",
     "recurrentgemma-2b": "recurrentgemma_2b",
+    "llama-3.2-vision-90b": "llama32_vision_90b",
+    "granite-moe-3b-a800m": "granite_moe_3b",
+    "dbrx-132b": "dbrx_132b",
+    "musicgen-medium": "musicgen_medium",
 }
 
 ARCH_IDS: List[str] = list(_MODULES)

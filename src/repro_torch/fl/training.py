@@ -20,7 +20,10 @@ client's `token_stream` stays where the JAX run's would be, and a
 non-participant keeps its momentum, as the JAX `keep` mask does.
 
 The hooks run on the card (`device="cuda"`) unless the caller asks for
-the CPU; without a card the default raises.
+the CPU; without a card the default raises. They train every family but
+the vlm one: its cross-attention layers need conditioning tokens, which
+the hooks' token streams do not draw. An MoE model's load-balancing loss
+enters each step through `models.lm.loss_fn`.
 
 Calibration (`calibrate` / `calibrated_profiles`) anchors simulated
 time to real compute, as the JAX package's does: it wall-clocks one
@@ -42,7 +45,7 @@ import torch
 
 from repro_torch import configs
 from repro_torch.common.bridge import flatten_with_paths, unflatten
-from repro_torch.common.config import ClientProfile, ModelConfig
+from repro_torch.common.config import CROSS_ATTN, ClientProfile, ModelConfig
 from repro_torch.common.device import require_device
 from repro_torch.comms.payload import UpdatePayload
 from repro_torch.data.synthetic import token_stream
@@ -75,6 +78,11 @@ class TorchTrainerHooks(TrainerHooks):
             raise ValueError("duplicate client names")
         self.cfg = cfg if cfg is not None else configs.get_config(
             model, smoke=smoke)
+        if CROSS_ATTN in self.cfg.pattern:
+            # as the JAX package's MeshTrainerHooks, which draws no `cond`
+            raise ValueError(
+                f"{self.cfg.name}: its cross-attention layers need a `cond` "
+                f"batch, and the hooks draw token batches only")
         self.local_steps = local_steps
         self.batch = batch
         self.seq = seq

@@ -18,12 +18,14 @@
 //
 // Design. One block of 256 threads per (batch*head, 64-query tile); four
 // neighbouring threads share one query row. Each holds a quarter of the
-// row's q and output accumulator in registers, in runs of four elements
-// (thread j of the four owns elements 16g + 4j + c), so it reads a key or
-// value row of the shared-memory tile as float4s: one load feeds four
-// FMAs, the four threads read 64 contiguous bytes that the warp's eight
-// rows share as a broadcast, and the four partial dot products meet in two
-// warp shuffles. Key and value tiles of 32 rows are staged in shared memory
+// row's q and output accumulator in registers, in runs of V elements
+// (thread j of the four owns elements 4Vg + Vj + c), so it reads a key or
+// value row of the shared-memory tile as V-float vectors: one load feeds
+// V FMAs, the four threads read 4V contiguous floats that the warp's
+// eight rows share as a broadcast, and the four partial dot products meet
+// in two warp shuffles. V is 4 (float4) where H is a multiple of 16, and
+// 2 (float2) for H = 8, the head dim of the SMOKE configurations with
+// d_model 64 over 8 heads: there each thread holds two elements. Key and value tiles of 32 rows are staged in shared memory
 // as fp32, one tile at a time; with 32-row tiles a thread's scores, q and
 // accumulator fit in 128 registers for H <= 128, so two blocks share an
 // SM. q, k, v and o are read through their (B, S, N, H) strides, so no
@@ -41,8 +43,25 @@ constexpr float kNegInf = -1e30f;
 constexpr int kBlockQ = 64;
 constexpr int kBlockK = 32;
 constexpr int kLanes = 4;                    // threads per query row
-constexpr int kVec = 4;                      // floats per shared-memory read
 constexpr int kThreads = kBlockQ * kLanes;
+
+// floats per shared-memory read: a float4 where H allows, else a float2
+template <int H>
+constexpr int kVecWidth = H % (kLanes * 4) == 0 ? 4 : 2;
+
+template <int V> struct VecType;
+template <> struct VecType<4> { using type = float4; };
+template <> struct VecType<2> { using type = float2; };
+
+// V consecutive floats of shared memory, in one vector load
+template <int V>
+__device__ __forceinline__ void load_vec(const float* p, float (&out)[V]) {
+  const typename VecType<V>::type t =
+      *reinterpret_cast<const typename VecType<V>::type*>(p);
+  const float* f = reinterpret_cast<const float*>(&t);
+#pragma unroll
+  for (int c = 0; c < V; ++c) out[c] = f[c];
+}
 
 struct FlashArgs {
   const void* q;
@@ -63,8 +82,9 @@ struct FlashArgs {
 template <int H>
 __global__ void __launch_bounds__(kThreads, H <= 128 ? 2 : 1)
 flash_fwd_kernel(const FlashArgs a) {
-  static_assert(H % (kLanes * kVec) == 0, "H must be a multiple of 16");
-  constexpr int G = H / (kLanes * kVec);     // float4 runs per thread
+  constexpr int kVec = kVecWidth<H>;
+  static_assert(H % (kLanes * kVec) == 0, "H must be a multiple of 8");
+  constexpr int G = H / (kLanes * kVec);     // vector runs per thread
   extern __shared__ __align__(16) float smem[];
   float* ks = smem;                          // [kBlockK][H]
   float* vs = smem + kBlockK * H;            // [kBlockK][H]
@@ -80,7 +100,7 @@ flash_fwd_kernel(const FlashArgs a) {
   const float* kp = static_cast<const float*>(a.k) + b * a.k_sb + n * a.k_sn;
   const float* vp = static_cast<const float*>(a.v) + b * a.v_sb + n * a.v_sn;
 
-  // this thread's elements of the row: 16 g + 4 lane + c
+  // this thread's elements of the row: 4 kVec g + kVec lane + c
   float qr[G][kVec], acc[G][kVec];
 #pragma unroll
   for (int g = 0; g < G; ++g)
@@ -113,17 +133,22 @@ flash_fwd_kernel(const FlashArgs a) {
     float tile_max = kNegInf;
 #pragma unroll
     for (int kk = 0; kk < kBlockK; ++kk) {
-      const float4* krow = reinterpret_cast<const float4*>(ks + kk * H);
-      float part[kVec] = {0.f, 0.f, 0.f, 0.f};
+      const float* krow = ks + kk * H;
+      float part[kVec];
+#pragma unroll
+      for (int c = 0; c < kVec; ++c) part[c] = 0.f;
 #pragma unroll
       for (int g = 0; g < G; ++g) {
-        const float4 kv = krow[g * kLanes + lane];
-        part[0] = fmaf(qr[g][0], kv.x, part[0]);
-        part[1] = fmaf(qr[g][1], kv.y, part[1]);
-        part[2] = fmaf(qr[g][2], kv.z, part[2]);
-        part[3] = fmaf(qr[g][3], kv.w, part[3]);
+        float kv[kVec];
+        load_vec<kVec>(krow + (g * kLanes + lane) * kVec, kv);
+#pragma unroll
+        for (int c = 0; c < kVec; ++c) part[c] = fmaf(qr[g][c], kv[c], part[c]);
       }
-      float dot = (part[0] + part[1]) + (part[2] + part[3]);
+      float dot;
+      if constexpr (kVec == 4)
+        dot = (part[0] + part[1]) + (part[2] + part[3]);
+      else
+        dot = part[0] + part[1];
       dot += __shfl_xor_sync(0xffffffffu, dot, 1);
       dot += __shfl_xor_sync(0xffffffffu, dot, 2);
       float sc = dot * a.scale;
@@ -146,14 +171,13 @@ flash_fwd_kernel(const FlashArgs a) {
     for (int kk = 0; kk < kBlockK; ++kk) {
       const float p = expf(s[kk] - m_new);
       psum += p;
-      const float4* vrow = reinterpret_cast<const float4*>(vs + kk * H);
+      const float* vrow = vs + kk * H;
 #pragma unroll
       for (int g = 0; g < G; ++g) {
-        const float4 vv = vrow[g * kLanes + lane];
-        acc[g][0] = fmaf(p, vv.x, acc[g][0]);
-        acc[g][1] = fmaf(p, vv.y, acc[g][1]);
-        acc[g][2] = fmaf(p, vv.z, acc[g][2]);
-        acc[g][3] = fmaf(p, vv.w, acc[g][3]);
+        float vv[kVec];
+        load_vec<kVec>(vrow + (g * kLanes + lane) * kVec, vv);
+#pragma unroll
+        for (int c = 0; c < kVec; ++c) acc[g][c] = fmaf(p, vv[c], acc[g][c]);
       }
     }
     l = alpha * l + psum;
@@ -202,6 +226,7 @@ extern "C" int flash_attention_fwd(
                     scale, causal, window, softcap};
   const cudaStream_t s = (cudaStream_t)stream;
   switch (H) {
+    case 8: return (int)launch<8>(a, s);
     case 16: return (int)launch<16>(a, s);
     case 32: return (int)launch<32>(a, s);
     case 64: return (int)launch<64>(a, s);

@@ -24,7 +24,11 @@ from repro_torch.kernels._tma import map_strides, tma_ready
 from repro_torch.kernels.flash_attention.ref import reference_attention
 from repro_torch.launch import roofline
 
+# head dims of the bf16 kernel (a wgmma K step is 16), and of the fp32
+# one, which also takes the 8 of the SMOKE configs with d_model 64 over
+# 8 heads
 HEAD_DIMS = (16, 32, 64, 96, 128, 256)
+FP32_HEAD_DIMS = (8,) + HEAD_DIMS
 _STEM = "flash_attention_fwd"               # fp32, CUDA cores
 _STEM_SM90 = "flash_attention_fwd_sm90"     # bf16, tensor cores
 
@@ -46,6 +50,14 @@ def flash_attention_plain(q, k, v, *, causal=True, window=None,
     out = reference_attention(_fold(q), _fold(k), _fold(v), causal=causal,
                               window=window, softcap=softcap)
     return _unfold(out, B, N)
+
+
+def check_head_dim(H, dtype):
+    """Raise unless a kernel of `dtype` has an instance for head dim H."""
+    dims = HEAD_DIMS if dtype == torch.bfloat16 else FP32_HEAD_DIMS
+    if H not in dims:
+        raise ValueError(f"flash_attention: head dim {H} not in {dims} "
+                         f"for {dtype}")
 
 
 def _entry(stem):
@@ -76,8 +88,7 @@ def flash_attention_fwd(q, k, v, *, causal=True, window=None, softcap=None):
     if tuple(k.shape) != (B, T, N, H) or tuple(v.shape) != (B, T, N, H):
         raise ValueError(f"flash_attention: shapes {tuple(q.shape)} "
                          f"{tuple(k.shape)} {tuple(v.shape)}")
-    if H not in HEAD_DIMS:
-        raise ValueError(f"flash_attention: head dim {H} not in {HEAD_DIMS}")
+    check_head_dim(H, q.dtype)
     if B * N > 65535:
         raise ValueError(f"flash_attention: B*N={B * N} exceeds 65535")
     if window is not None and window <= 0:

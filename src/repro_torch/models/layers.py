@@ -1,12 +1,14 @@
 """Core transformer layers of the port: parameter schemas, RMSNorm, RoPE,
-self attention (global or sliding-window, GQA, softcap) and the dense MLP.
+attention (global or sliding-window self attention, cross attention;
+GQA, softcap), the dense MLP and GShard capacity-routed MoE.
 
 Counterpart of the JAX package's `models/layers.py`; the functions take
 the same parameter dicts, layouts and shape letters: B=batch, S=query
 seq, T=kv seq, D=d_model, N=q heads, K=kv heads, G=N//K, H=head_dim,
-F=d_ff. Self attention always runs the flash-attention op, as the JAX
-path does under `cfg.use_pallas`. Cross attention, MoE and the decode
-path are not ported yet (ROADMAP §1, queued items 5 and 6).
+F=d_ff, E=experts, C=capacity. Self attention always runs the
+flash-attention op, as the JAX path does under `cfg.use_pallas`; cross
+attention is plain PyTorch, as the JAX package never sends it to its
+kernel. The decode path is not ported yet (ROADMAP §1, queued item 6).
 """
 from __future__ import annotations
 
@@ -123,33 +125,56 @@ def attention_schema(cfg):
     return s
 
 
-def attention(p, x, cfg, *, kind):
-    """Self / sliding-window attention. x: (B,S,D) -> (B,S,D)."""
-    if kind == C.CROSS_ATTN:
-        raise NotImplementedError(
-            "cross attention is not ported yet (ROADMAP §1, queued item 5)")
+def _soft_cap(scores, cap):
+    if cap is None:
+        return scores
+    return cap * torch.tanh(scores / cap)
+
+
+def _cross_attn(q, k, v, softcap):
+    """Full (not causal) attention of q (B,S,N,H) over k, v (B,T,N,H):
+    fp32 scores, softcap, fp32 softmax, the weights cast to q's dtype.
+    The JAX package computes it in query chunks; each row's softmax is
+    whole there too, so one pass gives the same numbers."""
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    s = torch.einsum("bqnh,btnh->bnqt", q.float(), k.float()) * scale
+    p = torch.softmax(_soft_cap(s, softcap), dim=-1).to(q.dtype)
+    return torch.einsum("bnqt,btnh->bqnh", p, v)
+
+
+def attention(p, x, cfg, *, kind, cond=None):
+    """Self / sliding-window / cross attention. x: (B,S,D) -> (B,S,D);
+    a cross layer attends to `cond` (B,T,D), without RoPE or a mask."""
+    cross = kind == C.CROSS_ATTN
+    if cross and cond is None:
+        raise ValueError("a cross-attention layer needs `cond` (B,T,D)")
+    src = cond if cross else x
     S = x.shape[1]
     g = cfg.num_heads // cfg.num_kv_heads
 
     q = torch.einsum("bsd,dnh->bsnh", x, p["wq"])
-    k = torch.einsum("btd,dnh->btnh", x, p["wk"])
-    v = torch.einsum("btd,dnh->btnh", x, p["wv"])
+    k = torch.einsum("btd,dnh->btnh", src, p["wk"])
+    v = torch.einsum("btd,dnh->btnh", src, p["wv"])
     if cfg.qkv_bias:
         q = q + p["bq"]
         k = k + p["bk"]
         v = v + p["bv"]
 
-    positions = torch.arange(S, device=x.device)
-    q = rope(q, positions, cfg.rope_theta)
-    k = rope(k, positions, cfg.rope_theta)
+    if not cross:
+        positions = torch.arange(S, device=x.device)
+        q = rope(q, positions, cfg.rope_theta)
+        k = rope(k, positions, cfg.rope_theta)
 
     # GQA: expand kv to the full head count, as the JAX layer does
     if g > 1:
         k = torch.repeat_interleave(k, g, dim=2)
         v = torch.repeat_interleave(v, g, dim=2)
-    window = cfg.window_size if kind == C.LOCAL_ATTN else None
-    out = fa_ops.flash_attention(q, k, v, causal=True, window=window,
-                                 softcap=cfg.logit_softcap)
+    if cross:
+        out = _cross_attn(q, k, v, cfg.logit_softcap)
+    else:
+        window = cfg.window_size if kind == C.LOCAL_ATTN else None
+        out = fa_ops.flash_attention(q, k, v, causal=True, window=window,
+                                     softcap=cfg.logit_softcap)
     return torch.einsum("bsnh,nhd->bsd", out, p["wo"])
 
 
@@ -180,3 +205,97 @@ def mlp(p, x, cfg):
         h = F.gelu(torch.einsum("bsd,df->bsf", x, p["wi"]),
                    approximate="tanh")
     return torch.einsum("bsf,fd->bsd", h, p["wo"])
+
+
+# ---------------------------------------------------------------------------
+# Mixture of Experts (GShard capacity routing, top-k).
+# ---------------------------------------------------------------------------
+def moe_schema(cfg):
+    d = cfg.d_model
+    e, f = cfg.moe.num_experts, cfg.moe.d_ff
+    s = {"router": ParamSpec((d, e), ("embed", None))}
+    if cfg.mlp_kind == "swiglu":
+        s["wi_gate"] = ParamSpec((e, d, f), ("experts", "embed", "mlp"))
+        s["wi_up"] = ParamSpec((e, d, f), ("experts", "embed", "mlp"))
+        s["wo"] = ParamSpec((e, f, d), ("experts", "mlp", "embed"))
+    else:
+        s["wi"] = ParamSpec((e, d, f), ("experts", "embed", "mlp"))
+        s["wo"] = ParamSpec((e, f, d), ("experts", "mlp", "embed"))
+    return s
+
+
+def moe_capacity(cfg, group_tokens: int) -> int:
+    m = cfg.moe
+    cap = int(math.ceil(group_tokens * m.top_k * m.capacity_factor
+                        / m.num_experts))
+    return max(cap, m.top_k)
+
+
+def _one_hot(idx, n):
+    """`jax.nn.one_hot`: an index outside [0, n) gives a zero row (a
+    dropped token's queue position), where `F.one_hot` would raise."""
+    return (idx[..., None] == torch.arange(n, device=idx.device)).float()
+
+
+def top_k(x, k):
+    """The k largest entries along the last dim, in `lax.top_k`'s order:
+    descending, equal values by lower index first. `torch.topk` orders
+    ties otherwise, and a slot's order is its GShard queue priority."""
+    vals, idx = torch.sort(x, dim=-1, descending=True, stable=True)
+    return vals[..., :k], idx[..., :k]
+
+
+def moe(p, x, cfg):
+    """x: (B,S,D) -> ((B,S,D), aux loss). GShard one-hot dispatch with
+    per-group capacity; a token whose slot lands past its expert's
+    capacity is dropped from that expert."""
+    m = cfg.moe
+    B, S, D = x.shape
+    gs = min(m.group_size, B * S)
+    if (B * S) % gs:
+        raise ValueError(f"moe: {B}x{S} tokens are no whole number of "
+                         f"dispatch groups of {gs}")
+    ng = B * S // gs
+    E, K = m.num_experts, m.top_k
+    cap = moe_capacity(cfg, gs)
+
+    xg = x.reshape(ng, gs, D)
+    logits = torch.einsum("gsd,de->gse", xg, p["router"]).float()
+    probs = torch.softmax(logits, dim=-1)
+    gate_vals, expert_idx = top_k(probs, K)                 # (ng, gs, K)
+    gate_vals = gate_vals / torch.clamp(
+        gate_vals.sum(-1, keepdim=True), min=1e-9)
+
+    onehot = _one_hot(expert_idx, E)                        # (ng,gs,K,E)
+    # position of each (token, slot) within its expert queue, priority by
+    # (slot-major, token) order as in GShard
+    flat = onehot.transpose(1, 2).reshape(ng, K * gs, E)
+    pos = torch.cumsum(flat, dim=1) - flat                  # (ng, K*gs, E)
+    pos = pos.reshape(ng, K, gs, E).transpose(1, 2)         # (ng,gs,K,E)
+    pos = (pos * onehot).sum(-1)                            # (ng, gs, K)
+    within = (pos < cap).float()
+
+    pos_oh = _one_hot(pos, cap) * within[..., None]
+    dispatch = torch.einsum("gske,gskc->gsec", onehot, pos_oh)
+    combine = torch.einsum("gsk,gske,gskc->gsec", gate_vals, onehot, pos_oh)
+
+    xe = torch.einsum("gsec,gsd->gecd", dispatch.to(x.dtype), xg)
+    if cfg.mlp_kind == "swiglu":
+        h = F.silu(torch.einsum("gecd,edf->gecf", xe, p["wi_gate"])) \
+            * torch.einsum("gecd,edf->gecf", xe, p["wi_up"])
+    else:
+        # jax.nn.gelu defaults to the tanh approximation
+        h = F.gelu(torch.einsum("gecd,edf->gecf", xe, p["wi"]),
+                   approximate="tanh")
+    ye = torch.einsum("gecf,efd->gecd", h, p["wo"])         # (ng,E,C,D)
+    y = torch.einsum("gsec,gecd->gsd", combine.to(x.dtype), ye)
+    return y.reshape(B, S, D), _aux_loss(probs, onehot)
+
+
+def _aux_loss(probs, onehot):
+    """Load-balancing auxiliary loss (Switch-style)."""
+    # probs: (ng, gs, E); onehot: (ng, gs, K, E)
+    E = probs.shape[-1]
+    frac_tokens = onehot.sum(2).mean(1)                     # (ng, E)
+    frac_probs = probs.mean(1)                              # (ng, E)
+    return (frac_tokens * frac_probs).sum(-1).mean() * E

@@ -1,18 +1,18 @@
-"""Decoder LM of the port, for the attention patterns (`attn`,
-`local_attn`) and the state-space ones (`mamba2`, `rglru`).
+"""Decoder LM of the port, for every layer kind (`attn`, `local_attn`,
+`cross_attn`, `mamba2`, `rglru`), with a dense or an MoE MLP.
 
 Counterpart of the JAX package's `models/lm.py`: the same parameter
 tree, with the stacked leading layer dim of `blocks/*`, which the forward
 indexes in a Python loop where the JAX package scans. `cfg.remat`
 recomputes each block in the backward
 (`torch.utils.checkpoint.checkpoint`, non-reentrant), as `jax.checkpoint`
-with `nothing_saveable` does. Cross attention and MoE raise
-NotImplementedError naming their ROADMAP item.
+with `nothing_saveable` does. The MoE layers' load-balancing losses are
+summed over the layers into `aux`.
 
 Public API:
   param_schema / param_shapes / init_params
-  forward(params, cfg, tokens)   -> logits, aux
-  loss_fn(params, cfg, batch)    -> scalar loss
+  forward(params, cfg, tokens, cond=None) -> logits, aux
+  loss_fn(params, cfg, batch)             -> scalar loss
 """
 from __future__ import annotations
 
@@ -23,22 +23,6 @@ from repro_torch.common import config as C
 from repro_torch.common.bridge import flatten_with_paths
 from repro_torch.models import layers as L
 from repro_torch.models import ssm as S
-
-_NOT_PORTED = {
-    C.CROSS_ATTN: "ROADMAP §1, queued item 5 (other LM families)",
-}
-
-
-def _check_supported(cfg):
-    for kind in set(cfg.pattern + cfg.tail_pattern):
-        if kind in _NOT_PORTED:
-            raise NotImplementedError(
-                f"layer kind {kind!r} is not ported yet: {_NOT_PORTED[kind]}")
-    if cfg.moe is not None:
-        raise NotImplementedError(
-            "MoE is not ported yet: ROADMAP §1, queued item 5 "
-            "(other LM families)")
-
 
 # ---------------------------------------------------------------------------
 # Schemas.
@@ -53,12 +37,12 @@ def _sublayer_schema(cfg, kind):
         sub["mix"] = L.attention_schema(cfg)
     if _has_mlp(cfg):
         sub["norm2"] = L.rms_norm_schema(cfg.d_model)
-        sub["mlp"] = L.mlp_schema(cfg)
+        sub["mlp"] = L.moe_schema(cfg) if cfg.moe else L.mlp_schema(cfg)
     return sub
 
 
 def _has_mlp(cfg):
-    return cfg.d_ff > 0
+    return cfg.d_ff > 0 or cfg.moe is not None
 
 
 def _block_schema(cfg, pattern):
@@ -67,7 +51,6 @@ def _block_schema(cfg, pattern):
 
 
 def param_schema(cfg):
-    _check_supported(cfg)
     d, v = cfg.d_model, cfg.vocab_size
     schema = {
         "embed": {"table": L.ParamSpec((v, d), ("vocab", "embed"), "embed")},
@@ -100,24 +83,31 @@ def init_params(cfg, seed: int = 0, device: str = "cuda"):
 # ---------------------------------------------------------------------------
 # Forward (train / prefill).
 # ---------------------------------------------------------------------------
-def _apply_sublayer(kind, p, x, cfg):
+def _apply_sublayer(kind, p, x, cfg, cond):
     h = L.rms_norm(x, p["norm1"], cfg.norm_eps)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if kind == C.MAMBA2:
         x = x + S.mamba2_mix(p["mix"], h, cfg)
     elif kind == C.RGLRU:
         x = x + S.rglru_mix(p["mix"], h, cfg)
     else:
-        x = x + L.attention(p["mix"], h, cfg, kind=kind)
+        x = x + L.attention(p["mix"], h, cfg, kind=kind, cond=cond)
     if _has_mlp(cfg):
         h = L.rms_norm(x, p["norm2"], cfg.norm_eps)
-        x = x + L.mlp(p["mlp"], h, cfg)
-    return x
+        if cfg.moe:
+            h, aux = L.moe(p["mlp"], h, cfg)
+        else:
+            h = L.mlp(p["mlp"], h, cfg)
+        x = x + h
+    return x, aux
 
 
-def _apply_block(pattern, p_blk, x, cfg):
+def _apply_block(pattern, p_blk, x, cfg, cond):
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for i, kind in enumerate(pattern):
-        x = _apply_sublayer(kind, p_blk[f"{i:02d}_{kind}"], x, cfg)
-    return x
+        x, a = _apply_sublayer(kind, p_blk[f"{i:02d}_{kind}"], x, cfg, cond)
+        aux = aux + a
+    return x, aux
 
 
 def _layer_slice(tree, i):
@@ -126,35 +116,46 @@ def _layer_slice(tree, i):
     return tree[i]
 
 
-def forward(params, cfg, tokens):
-    """tokens: (B,S) integer ids. Returns (logits (B,S,V), aux_loss scalar);
-    aux is zero, as for every family without MoE."""
-    _check_supported(cfg)
-    x = params["embed"]["table"][tokens].to(cfg.activation_dtype)
+def forward(params, cfg, tokens, cond=None):
+    """tokens: (B,S) integer ids, or (B,S,D) pre-embedded frames (audio);
+    cond: (B,T,D) conditioning tokens of the cross-attention layers (vlm).
+    Returns (logits (B,S,V), aux_loss scalar)."""
+    if tokens.ndim == 2:
+        x = params["embed"]["table"][tokens]
+    else:
+        x = tokens
+    x = x.to(cfg.activation_dtype)
+    if cond is not None:
+        cond = cond.to(cfg.activation_dtype)
 
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if cfg.n_super > 0:
         def block(h, i):
             return _apply_block(cfg.pattern,
-                                _layer_slice(params["blocks"], i), h, cfg)
+                                _layer_slice(params["blocks"], i), h, cfg,
+                                cond)
 
         for i in range(cfg.n_super):
             if cfg.remat:
-                x = checkpoint(block, x, i, use_reentrant=False)
+                x, a = checkpoint(block, x, i, use_reentrant=False)
             else:
-                x = block(x, i)
+                x, a = block(x, i)
+            aux = aux + a
     if cfg.tail_pattern:
-        x = _apply_block(cfg.tail_pattern, params["tail"], x, cfg)
+        x, a = _apply_block(cfg.tail_pattern, params["tail"], x, cfg, cond)
+        aux = aux + a
 
     x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
     table = (params["embed"]["table"].T if cfg.tie_embeddings
              else params["lm_head"]["table"])
     logits = torch.einsum("bsd,dv->bsv", x, table)
-    return logits, torch.zeros((), dtype=torch.float32, device=x.device)
+    return logits, aux
 
 
 def loss_fn(params, cfg, batch, aux_weight: float = 0.01):
-    """batch: dict(tokens (B,S), labels (B,S)). Mean token CE."""
-    logits, aux = forward(params, cfg, batch["tokens"])
+    """batch: dict(tokens (B,S), labels (B,S), [cond]). Mean token CE."""
+    logits, aux = forward(params, cfg, batch["tokens"],
+                          cond=batch.get("cond"))
     logits = logits.float()
     logz = torch.logsumexp(logits, dim=-1)
     gold = torch.gather(logits, -1, batch["labels"][..., None])[..., 0]

@@ -59,6 +59,11 @@ FLASH_CASES = [
     (1, 600, 1, 128, torch.bfloat16, 256, None, None),
     (1, 333, 2, 256, torch.bfloat16, 100, 20.0, None),
     (1, 600, 1, 256, torch.bfloat16, None, None, None),
+    # head dim 8 (fp32 only): the SMOKE configs with d_model 64 over 8
+    # heads, ragged lengths, window and softcap
+    (2, 77, 8, 8, torch.float32, None, None, 2e-5),
+    (1, 300, 8, 8, torch.float32, 64, 10.0, 2e-5),
+    (2, 16, 8, 8, torch.float32, None, None, 2e-5),
 ]
 
 
@@ -145,6 +150,14 @@ def test_flash_rejects_an_unsupported_head_dim(gen):
     q = _randn(gen, 1, 64, 1, 48)
     with pytest.raises(ValueError, match="head dim"):
         fa.flash_attention_fwd(q, q, q)
+
+
+def test_flash_bf16_rejects_head_dim_8(gen):
+    q = _randn(gen, 1, 64, 2, 8, dtype=torch.bfloat16)
+    before = fa.flash_attention_fwd.launches
+    with pytest.raises(ValueError, match="head dim"):
+        fa.flash_attention_fwd(q, q, q)
+    assert fa.flash_attention_fwd.launches == before
 
 
 @pytest.mark.parametrize("shape,scale", [
@@ -657,3 +670,38 @@ def test_cnn_local_epoch_on_the_card_matches_the_cpu(gen, model, dataset,
         ulp = torch.finfo(torch.float32).eps * w.abs().max().item()
         assert update <= ulp or not torch.equal(got[k], init[k]), k
         assert (got[k] - w).abs().max().item() <= 2e-2 * update + 2 * ulp, k
+
+
+@pytest.mark.parametrize("quantize", [False, True])
+def test_granite_smoke_round_on_the_card_matches_the_cpu(gen, quantize):
+    """One FL round of granite-moe SMOKE (MoE, GQA, fp32 flash on the
+    card) on the card against the same round on the CPU: losses within
+    2e-4, each parameter within 2% of its update on the CPU plus 2 ulps,
+    and every leaf the CPU moves by more than an ulp moves on the card.
+    At lr 2e-4, as chip_smoke.py's SMOKE_LR says why."""
+    from repro_torch.common.bridge import flatten_with_paths
+    from repro_torch.fl.training import TorchTrainerHooks
+
+    runs = []
+    for device in ("cuda", "cpu"):
+        hooks = TorchTrainerHooks(("client_0", "client_1"),
+                                  model="granite-moe-3b-a800m", smoke=True,
+                                  local_steps=2, batch=2, seq=64, lr=2e-4,
+                                  quantize=quantize, device=device)
+        init = {k: v.cpu() for k, v in flatten_with_paths(hooks.params)}
+        before = fa.flash_attention_fwd.launches
+        for c in hooks.clients:
+            hooks.run_local(c, 0)
+        hooks.aggregate(list(hooks.clients), 0)
+        if device == "cuda":
+            # 2 attention layers x 2 clients x 2 steps
+            assert fa.flash_attention_fwd.launches == before + 8
+        runs.append(({k: v.cpu() for k, v in flatten_with_paths(hooks.params)},
+                     hooks.losses[-1]["mean_loss"]))
+    (gpu, gpu_loss), (cpu, cpu_loss) = runs
+    assert gpu_loss == pytest.approx(cpu_loss, abs=2e-4)
+    for k in cpu:
+        update = (cpu[k] - init[k]).abs().max().item()
+        ulp = torch.finfo(cpu[k].dtype).eps * cpu[k].abs().max().item()
+        assert update <= ulp or not torch.equal(gpu[k], init[k]), k
+        assert (gpu[k] - cpu[k]).abs().max().item() <= 2e-2 * update + 2 * ulp, k

@@ -71,6 +71,10 @@ FLASH_CASES = [
     (256, 32, jnp.float32, 32, None, 1.0, 2e-5),
     (256, 32, jnp.float32, 128, None, 1.0, 2e-5),
     (128, 32, jnp.float32, None, 10.0, 3.0, 3e-5),
+    # head dim 8, which the fp32 kernel has an instance for: the SMOKE
+    # configs with d_model 64 over 8 heads
+    (128, 8, jnp.float32, None, None, 1.0, 2e-5),
+    (200, 8, jnp.float32, 64, 10.0, 3.0, 3e-5),
 ]
 
 
@@ -112,6 +116,17 @@ class TestFlashAttention:
         for a, b in zip(got, want):
             np.testing.assert_allclose(a.numpy(), np.asarray(b),
                                        atol=3e-4, rtol=3e-4)
+
+    def test_head_dims_by_dtype(self):
+        """The fp32 kernel takes head dim 8 as well; bf16 at 8 raises (a
+        wgmma K step is 16, and no config sends it)."""
+        for H in fa.FP32_HEAD_DIMS:
+            fa.check_head_dim(H, torch.float32)
+        assert 8 in fa.FP32_HEAD_DIMS and 8 not in fa.HEAD_DIMS
+        for H, dtype in [(8, torch.bfloat16), (48, torch.float32),
+                         (4, torch.float32)]:
+            with pytest.raises(ValueError, match="head dim"):
+                fa.check_head_dim(H, dtype)
 
     def test_cpu_tensors_take_the_plain_version(self):
         rng = np.random.RandomState(4)

@@ -168,16 +168,6 @@ class TestLM:
                                 for k, v in batch.items()})
         np.testing.assert_allclose(loss.item(), float(jloss), rtol=1e-6)
 
-    @pytest.mark.parametrize("arch,kw", [
-        ("mamba2-1.3b", dict(pattern=("mamba2", "cross_attn"))),
-        ("recurrentgemma-2b", dict(moe=object())),
-        ("phi3-mini-3.8b", dict(pattern=("cross_attn",))),
-        ("phi3-mini-3.8b", dict(moe=object()))])
-    def test_unported_families_raise(self, arch, kw):
-        cfg = dataclasses.replace(configs.get_config(arch, smoke=True), **kw)
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            lm.param_schema(cfg)
-
 
 # ---------------------------------------------------------------------------
 # State-space families.

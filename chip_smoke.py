@@ -45,6 +45,31 @@ ssd launches must all go to the tensor-core kernel, and recurrentgemma's
 backward must run the fused RG-LRU backward, never the reverse scan
 alone.
 
+Then the decode path and the drivers (`repro_torch.launch`). At each of
+the four main paths' full width and depth (`phase_serve`), the serving
+driver prefills a prompt of 1024 tokens (recurrentgemma-2b: 2100, past
+its window of 2048, so its local attention's ring buffer wraps) by
+decode steps and decodes 32 greedy tokens in bf16; the decode loop must
+launch no kernel of the port's, one forward over the prompt and the
+prefill step each kernel once a layer of its kind, and the prefill step
+must equal the forward's last row bit for bit; prefill ms and decode
+ms/token are printed. The same driver in fp32 at the same shapes keeps
+its teacher-forced logits, which must lie within `DECODE_BAR` of the
+fp32 forward's at every prompt position (granite-moe: where the decode
+and the forward chose the same experts, at most `ROUTE_FLIPS` of the
+positions choosing otherwise), and recurrentgemma's decode must lie
+over that bar from forwards whose window is one key short or long.
+Every registry config's SMOKE decode (16 steps, fp32) is held to the
+CPU's (`phase_decode_smoke`). The training driver (`phase_train`) runs
+phi3-mini-3.8b's main path with two micro-batches a step: 6 steps
+uninterrupted, then 3 steps to a checkpoint and a restart from it to
+step 6, whose parameters and optimizer state must lie within 2 ulps of
+each leaf's largest entry of the uninterrupted run's, and each run must launch flash exactly once a layer a
+micro-batch in the forward and once in the backward's recompute; ms/step
+and tokens/s are printed. One `make_train_step` step of
+the SMOKE phi3, mamba2, recurrentgemma and granite-moe configs on the
+card is held to the CPU's.
+
 Then the paper's own CNN path (`phase_paper_path`), which runs no kernel
 of the port's (cuDNN and cuBLAS; the counts must stay 0): the MNIST row
 of Table I in full as `repro_torch.examples.paper_reproduction` runs it
@@ -65,6 +90,7 @@ lines of standard output are the card's name and power limit as
 `{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}`.
 Before them comes one `{"kernels": [...]}` line.
 """
+import contextlib
 import dataclasses
 import gc
 import json
@@ -975,6 +1001,496 @@ def phase_vlm_reference():
           f"launches (fp32, head dim {cfg.resolved_head_dim})")
 
 
+# The decode path and the drivers (`repro_torch.launch`). `phase_serve`
+# runs the serving driver at each LM main path's full width and depth, in
+# the path's bf16, for its times and launches: a prompt of `SERVE_PROMPT`
+# tokens prefilled by decode steps, then `SERVE_GEN` greedy tokens;
+# recurrentgemma-2b's prompt passes its window of 2048, so its local
+# attention's ring buffer wraps. The decode's arithmetic is held in fp32
+# at the same shapes and weights: the teacher-forced logits at every
+# prompt position against `lm.forward`'s on the card (its fp32 kernels),
+# max |decode - forward| over the largest forward logit, within
+# `DECODE_BAR` (each bar lies between the card's fp32 reading of a
+# correct decode and that of a faulty one: PERF.md §6, PR 19). The fp32
+# run takes the bf16 weights upcast. In bf16 two correct computations at
+# random weights lie up to 0.17 (phi3) and 0.63 (granite) of the largest
+# logit apart (`tools/decode_card_spread.py`), so no bf16 bar tells a
+# fault from rounding. The ring's check has its own teeth:
+# recurrentgemma's decode against a forward whose window is one key
+# short (a ring that drops its oldest key) must read over the bar past
+# the window; against one a key long it is printed, not held (a key
+# that far back moved the logits within rounding at these weights; the
+# SMOKE window of 8 holds both directions in the CPU tests).
+# granite-moe's router has near-ties that two correct fp32 computations
+# break either way (the card and the CPU 0.111 of the largest logit apart
+# at batch 4 x 256), and an expert chosen otherwise moves its position
+# and, through the next layers' attention, every later position of its
+# row; so its gap is read at the (row, position) pairs where the decode
+# and the forward chose the same experts in every layer and no earlier
+# position of the row chose otherwise in a layer before the last, and
+# the share of pairs choosing otherwise is held under `ROUTE_FLIPS`; its
+# forward takes the capacity factor E/K (no drops), as a decode step's
+# group of B tokens never fills an expert's capacity. Its random weights
+# leave it ill-conditioned (a peaked router over experts whose outputs
+# grow large), so fp32 rounding grows through its two layers to a heavy
+# tail of a few positions, with no expert chosen otherwise there: its
+# bar is the widest, a tenth of the largest logit
+SERVE_PROMPT = {"phi3-mini-3.8b": 1024, "mamba2-1.3b": 1024,
+                "recurrentgemma-2b": 2100, "granite-moe-3b-a800m": 1024}
+SERVE_GEN = 32
+DECODE_BAR = {"phi3-mini-3.8b": 5e-3, "mamba2-1.3b": 5e-3,
+              "recurrentgemma-2b": 1e-3, "granite-moe-3b-a800m": 1e-1}
+ROUTE_FLIPS = 1e-2
+# `phase_train`: phi3-mini-3.8b's main path through the training driver,
+# two micro-batches a step (adamw, weight decay 0.1, train.py's lr),
+# `TRAIN_STEPS` steps uninterrupted and in two runs: to a checkpoint at
+# step `TRAIN_CKPT`, then resumed there. The resumed run's parameters and
+# optimizer state are held to the uninterrupted run's within 2 ulps of
+# each leaf's largest entry: two uninterrupted runs on the card were bit
+# for bit equal in each of five calls (PERF.md §6, PR 19), and the
+# driver switches on no deterministic mode
+TRAIN_ARCH, TRAIN_ACCUM, TRAIN_LR = "phi3-mini-3.8b", 2, 1e-3
+TRAIN_STEPS, TRAIN_CKPT = 6, 3
+# One `make_train_step` step (two micro-batches) of these SMOKE configs on
+# the card against the CPU, batch 4 x 64, at `SMOKE_LR` and 2% of each
+# leaf's update plus 2 ulps. Each leaf's first moments (a tenth of its
+# clipped fp32 gradient) are held at `STEP_GRAD_X` times that leaf's own
+# fp32 distance from a float64 run of the same step on the CPU (over the
+# leaf's largest entry), and at least the CPU parity tests' gradient bar
+# (`STEP_GRAD_FLOOR`, tests/test_torch_models.py's GRAD_TOL): at batch
+# 4 x 64 the worst leaf's distance is 2.2e-4 for phi3, 8.3e-5 mamba2,
+# 1.3e-3 recurrentgemma (`conv_b`, which missed 1e-4 and 1e-3 on the
+# card) and 3.3e-4 granite-moe; recurrentgemma's `ra_w` leaves lie 1e-5
+# and 5e-5 from float64 on the CPU but 1.6e-4 and 3.2e-4 from the CPU on
+# the card (the fused RG-LRU backward sums in another order)
+STEP_ARCHS = ("phi3-mini-3.8b", "mamba2-1.3b", "recurrentgemma-2b",
+              "granite-moe-3b-a800m")
+STEP_GRAD_X = 4
+STEP_GRAD_FLOOR = {"recurrentgemma-2b": 1e-3}
+STEP_SHARE = 2e-2
+
+
+def _layer_launches(cfg, *kinds):
+    return sum(cfg.pattern.count(k) for k in kinds) * cfg.n_super + sum(
+        cfg.tail_pattern.count(k) for k in kinds)
+
+
+def _forward_launches(cfg):
+    """What one forward (no gradient) launches: each layer's kernel once."""
+    want = {name: 0 for name in _counters()}
+    want["flash_attention_fwd"] = _layer_launches(cfg, "attn", "local_attn")
+    want["ssd_fwd"] = _layer_launches(cfg, "mamba2")
+    want["rglru_scan_fwd"] = _layer_launches(cfg, "rglru")
+    return want
+
+
+def _launches(counters):
+    torch.cuda.synchronize()
+    return {name: fn.launches for name, fn in counters.items()}
+
+
+@contextlib.contextmanager
+def _expert_choices(out):
+    """Records the expert indices of every MoE call in `out`, each as
+    (tokens, K) in the order of the layer's (B, S) tokens, sorted."""
+    from repro_torch.models import layers
+
+    real = layers.top_k
+
+    def top_k(x, k):
+        vals, idx = real(x, k)
+        out.append(idx.reshape(-1, k).sort(dim=-1).values)
+        return vals, idx
+
+    layers.top_k = top_k
+    try:
+        yield
+    finally:
+        layers.top_k = real
+
+
+def _gap(dec, ref):
+    """Each (row, position)'s max |dec - ref| over ref's largest entry."""
+    return (dec - ref).abs().amax(-1) / ref.abs().max()
+
+
+def _decode_vs_forward(arch, cfg, params, batch, P):
+    """The serving driver in fp32 at `cfg`'s width and depth with its
+    prompt kept: its teacher-forced logits against the forward's on the
+    kernels. Returns the gap, the bar and the printed readings; fails
+    past a bar."""
+    from repro_torch.launch import serve
+    from repro_torch.models import lm
+
+    c = dataclasses.replace(cfg, dtype="float32", param_dtype="float32")
+    if c.moe:
+        m = c.moe
+        c = dataclasses.replace(c, moe=dataclasses.replace(
+            m, capacity_factor=m.num_experts / m.top_k))
+    routes = []
+    with _expert_choices(routes) if c.moe else contextlib.nullcontext():
+        out = serve.serve(c, params, batch, P, 1, device="cuda",
+                          keep_prompt_logits=True, log=lambda s: None)
+        counters = _reset_counters()
+        with torch.no_grad():
+            full, _ = lm.forward(params, c, out["prompt"])
+        launches = _launches(counters)
+    _check(launches == _forward_launches(c),
+           f"{c.name} fp32: forward launched {launches}")
+    dec = out.pop("prompt_logits")
+    _check(bool(torch.isfinite(dec).all()) and bool(torch.isfinite(full).all()),
+           f"{c.name} fp32: non-finite logits")
+    gap = _gap(dec, full)                                       # (B, P)
+    bar = DECODE_BAR[arch]
+    notes = [f"prefill by decode steps {out['prefill_s']:.1f} s"]
+    keep = torch.ones_like(gap, dtype=torch.bool)
+    if c.moe:
+        # each decode step records its layers' (B, K), then the forward
+        # its layers' (B * P, K)
+        n = len(routes) // (P + 2)
+        dec_r = torch.stack(routes[:P * n]).reshape(P, n, batch, -1)
+        fwd_r = torch.stack(routes[-n:]).reshape(n, batch, P, -1)
+        same = (dec_r.permute(2, 0, 1, 3) == fwd_r.permute(1, 2, 0, 3)
+                ).all(-1)                                       # (B, P, n)
+        later = (~same[..., :-1]).any(-1).int().cummax(-1).values.bool()
+        keep = same.all(-1) & ~later
+        flips = 1 - same.all(-1).float().mean().item()
+        notes.append(f"expert choices differ at {int((~same.all(-1)).sum())} "
+                     f"of {keep.numel()} (row, position) pairs ({flips:.3%}, "
+                     f"bar {ROUTE_FLIPS:.0%}); read at the {int(keep.sum())} "
+                     f"pairs neither they nor an earlier flip reach; at "
+                     f"every pair {gap.max().item():.3e}")
+        _check(flips <= ROUTE_FLIPS, f"{c.name} fp32: expert choices differ "
+               f"at {flips:.3%} of the pairs, bar {ROUTE_FLIPS:.0%}")
+    worst = gap[keep].max().item()
+    _check(worst <= bar, f"{c.name}: fp32 teacher-forced decode lies "
+           f"{worst:.3e} of the largest logit from forward, bar {bar:.3e}")
+    if "local_attn" in c.pattern:
+        W = c.window_size
+        _check(P > W, f"{c.name}: the ring does not wrap at prompt {P}")
+        notes.append(f"before the wrap {gap[:, :W].max().item():.3e}, "
+                     f"after it {gap[:, W:].max().item():.3e}")
+        for w in (W - 1, W + 1):
+            with torch.no_grad():
+                other, _ = lm.forward(params, dataclasses.replace(
+                    c, window_size=w), out["prompt"])
+            wrong = _gap(dec[:, W:], other[:, W:]).max().item()
+            _check(w > W or wrong > bar, f"{c.name}: the decode lies "
+                   f"{wrong:.3e} of the largest logit from a forward with "
+                   f"window {w}, under the bar {bar:.3e}")
+            notes.append(f"against a forward with window {w} (a ring a "
+                         f"key {'long, not held' if w > W else 'short'}) "
+                         f"{wrong:.3e} past the window")
+    return worst, bar, notes
+
+
+def phase_serve(arch):
+    """The serving driver at one main path's full width (see above)."""
+    from repro_torch.benchmarks.table1 import main_path
+    from repro_torch.common.bridge import tree_map
+    from repro_torch.launch import serve, steps
+    from repro_torch.models import lm
+
+    cfg, batch, _ = main_path(arch)
+    P = SERVE_PROMPT[arch]
+    t0 = time.perf_counter()
+    gc.collect()
+    torch.cuda.reset_peak_memory_stats()
+    params = lm.init_params(cfg, 0, "cuda")
+    counters = _reset_counters()
+    out = serve.serve(cfg, params, batch, P, SERVE_GEN, device="cuda",
+                      log=lambda s: print(f"[serve] {cfg.name}: {s}"))
+    decode_launches = _launches(counters)
+    _check(not any(decode_launches.values()),
+           f"{cfg.name}: the decode loop launched {decode_launches}")
+    _check(out["tokens"].shape == (batch, SERVE_GEN)
+           and bool(((out["tokens"] >= 0)
+                     & (out["tokens"] < cfg.vocab_size)).all()),
+           f"{cfg.name}: tokens of shape {tuple(out['tokens'].shape)}")
+
+    counters = _reset_counters()
+    with torch.no_grad():
+        full, _ = lm.forward(params, cfg, out["prompt"])
+    fwd_launches = _launches(counters)
+    prefill = steps.make_prefill_step(cfg)
+    counters = _reset_counters()
+    last = prefill(params, out["prompt"])
+    prefill_launches = _launches(counters)
+    want = _forward_launches(cfg)
+    _check(fwd_launches == want and prefill_launches == want,
+           f"{cfg.name}: forward launched {fwd_launches}, prefill "
+           f"{prefill_launches}, want {want}")
+    _check(torch.equal(last, full[:, -1]) and bool(torch.isfinite(last).all()),
+           f"{cfg.name}: make_prefill_step differs from forward's last row")
+    prefill_ms = _time_ms(lambda: prefill(params, out["prompt"]), iters=3,
+                          warmup=1)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    del full, last
+    params = tree_map(lambda t: t.float(), params)
+    gc.collect()
+    gap, bar, notes = _decode_vs_forward(arch, cfg, params, batch, P)
+    ms_tok = out["decode_s"] / SERVE_GEN * 1e3
+    print(f"[serve] {cfg.name} ({cfg.num_layers} layers, batch {batch}, "
+          f"prompt {P}, {SERVE_GEN} greedy tokens, bf16): teacher-forced "
+          f"prefill {out['prefill_s'] * 1e3:.1f} ms ({out['prefill_s'] / P * 1e3:.3f} "
+          f"ms a position), decode {ms_tok:.3f} ms/token "
+          f"({batch / ms_tok * 1e3:.1f} tokens/s); make_prefill_step "
+          f"{prefill_ms:.3f} ms (CUDA events); peak {peak:.2f} GB; "
+          f"{_gpu_name()}")
+    print(f"[serve] {cfg.name}: fp32 teacher-forced decode vs forward at "
+          f"all {P} prompt positions: {gap:.3e} of the largest logit, bar "
+          f"{bar:.3e}; " + "; ".join(notes) + f"; launches: decode loop "
+          f"{decode_launches}, forward and prefill {want}; prefill step "
+          f"equal to forward's last row bit for bit; phase "
+          f"{time.perf_counter() - t0:.1f} s")
+
+
+# Every registry config's SMOKE decode on the card against the CPU in
+# fp32: 16 steps, batch 2 (recurrentgemma SMOKE's window is 8, so its
+# ring wraps), the logits after each step within `STEP_GRAD_X` times the
+# CPU's own fp32 distance from a float64 run of the same decode (max
+# |difference| over the largest logit), and at least 5e-5, the bar of
+# the seven families' logits parity (tests/test_torch_decode.py): at
+# 2e-5 absolute and relative, phi3's held for the JAX package on the
+# CPU, the card missed (1.32 of it)
+DECODE_SMOKE_STEPS = 16
+
+
+def _decode_logits(cfg, device, toks, cond, f64=False):
+    """`DECODE_SMOKE_STEPS` teacher-forced decode steps of `cfg`'s seed-0
+    weights (in float64, cache included, with `f64`), logits on the CPU."""
+    from repro_torch.common import config as C
+    from repro_torch.common.bridge import tree_map
+    from repro_torch.common.float64 import float_is_double
+    from repro_torch.models import lm
+
+    B, S = toks.shape[:2]
+    params = lm.init_params(cfg, 0, device)
+    cache = lm.init_cache(cfg, B, S, device=device)
+    toks, cond = toks.to(device), cond.to(device)
+    if f64:
+        params, cache = (tree_map(lambda t: t.double(), x)
+                         for x in (params, cache))
+        cfg = dataclasses.replace(cfg, dtype="float64", param_dtype="float64")
+        toks = toks.double() if toks.is_floating_point() else toks
+        cond = cond.double()
+    with float_is_double() if f64 else contextlib.nullcontext():
+        for i, kind in enumerate(cfg.pattern):
+            if kind == C.CROSS_ATTN:
+                key = f"{i:02d}_{kind}"
+                mix = params["blocks"][key]["mix"]
+                cache["blocks"][key]["cond_k"].copy_(
+                    torch.einsum("btd,ldnh->lbtnh", cond, mix["wk"]))
+                cache["blocks"][key]["cond_v"].copy_(
+                    torch.einsum("btd,ldnh->lbtnh", cond, mix["wv"]))
+        out = []
+        for t in range(S):
+            logits, cache = lm.decode_step(
+                params, cfg, toks[:, t:t + 1],
+                torch.full((B,), t, device=device), cache)
+            out.append(logits[:, 0].cpu().double())
+    return torch.stack(out, dim=1)
+
+
+def phase_decode_smoke():
+    """The decode path's arithmetic at SMOKE size in fp32, card against
+    CPU, for the ten configs (vlm with its cross layers' keys and values
+    of a random `cond` in the cache, musicgen on frames)."""
+    from repro_torch import configs
+
+    B, S = 2, DECODE_SMOKE_STEPS
+    worst = {}
+    for arch in configs.ARCH_IDS:
+        cfg = configs.get_config(arch, smoke=True)
+        gen = torch.Generator().manual_seed(1)
+        if cfg.family == "audio":
+            toks = torch.randn(B, S, cfg.d_model, generator=gen)
+        else:
+            toks = torch.randint(0, cfg.vocab_size, (B, S), generator=gen)
+        cond = torch.randn(B, cfg.n_cond_tokens, cfg.d_model, generator=gen)
+        got = _decode_logits(cfg, "cuda", toks, cond)
+        want = _decode_logits(cfg, "cpu", toks, cond)
+        f64 = _decode_logits(cfg, "cpu", toks, cond, f64=True)
+        top = want.abs().max().item()
+        spread = (want - f64).abs().max().item() / top
+        tol = max(STEP_GRAD_X * spread, 5e-5)
+        ratio = (got - want).abs().max().item() / (tol * top)
+        _check(ratio <= 1, f"{arch} SMOKE decode card vs CPU: {ratio:.3f} of "
+               f"the bar {tol:.3e} of the largest logit (the CPU's fp32 "
+               f"distance from float64 {spread:.3e})")
+        worst[arch] = (round(ratio, 3), f"{tol:.1e}")
+    print(f"[serve] SMOKE decode, {S} steps of batch {B} in fp32, card vs "
+          f"CPU logits: each config's share of its bar, and the bar (of the "
+          f"largest logit: {STEP_GRAD_X} x the CPU's fp32 distance from "
+          f"float64, at least 5e-5): {worst}")
+
+
+def phase_train():
+    """The training driver at phi3-mini-3.8b's main path: an uninterrupted
+    run, a run that stops at its one checkpoint, and a run that resumes
+    there and saves none; the resumed parameters and optimizer state held
+    to the uninterrupted run's (see `TRAIN_STEPS`)."""
+    import tempfile
+    from repro_torch.benchmarks.table1 import main_path
+    from repro_torch.common.bridge import flatten_with_paths
+    from repro_torch.launch import train
+
+    cfg, batch, seq = main_path(TRAIN_ARCH)
+    cfg = dataclasses.replace(cfg, grad_accum=TRAIN_ACCUM)
+    t0 = time.perf_counter()
+    gc.collect()
+    torch.cuda.reset_peak_memory_stats()
+
+    def run(steps, ckpt_dir=""):
+        """A run of the driver; its final state as flat fp32 leaves. Each
+        step's micro-batches launch flash once a layer in the forward and
+        once in the backward's recompute (remat), nothing else. A run
+        with `ckpt_dir` saves at step `TRAIN_CKPT` only (a checkpoint
+        of 4.2 GB takes seconds on the host each way)."""
+        counters = _reset_counters()
+        t0 = time.perf_counter()
+        out = train.train(cfg, TRAIN_ARCH, steps, batch, seq, TRAIN_LR,
+                          ckpt_dir=ckpt_dir, ckpt_every=(
+                              TRAIN_CKPT if steps == TRAIN_CKPT
+                              else TRAIN_STEPS + 1),
+                          log_every=TRAIN_STEPS, device="cuda",
+                          log=lambda s: print(f"[train] {cfg.name}: {s}"))
+        out["wall_s"] = time.perf_counter() - t0
+        launches = _launches(counters)
+        want = {name: 0 for name in counters}
+        want["flash_attention_fwd"] = ((steps - out["start_step"])
+                                       * TRAIN_ACCUM * (1 + cfg.remat)
+                                       * _layer_launches(cfg, "attn"))
+        _check(launches == want, f"{cfg.name} train to step {steps}: "
+               f"launched {launches}, want {want}")
+        out["launches"] = launches["flash_attention_fwd"]
+        state = {"params": out.pop("params"), "opt": out.pop("opt")}
+        if steps == TRAIN_STEPS:
+            out["flat"] = {k: v.float()
+                           for k, v in flatten_with_paths(state)}
+        return out
+
+    whole = run(TRAIN_STEPS)
+    with tempfile.TemporaryDirectory() as d:
+        first = run(TRAIN_CKPT, d)
+        resumed = run(TRAIN_STEPS, d)
+    losses = whole["losses"]
+    _check(len(losses) == TRAIN_STEPS and all(map(math.isfinite, losses))
+           and resumed["start_step"] == TRAIN_CKPT
+           and len(first["losses"]) + len(resumed["losses"]) == TRAIN_STEPS,
+           f"{cfg.name} train: losses {losses}, resumed at "
+           f"{resumed['start_step']}")
+    worst, leaf = 0.0, None
+    for k, w in whole["flat"].items():
+        err = (resumed["flat"][k] - w).abs().max().item()
+        bar = 2 * torch.finfo(torch.bfloat16 if k.startswith("params/")
+                              else torch.float32).eps * w.abs().max().item()
+        _check(err <= bar, f"{cfg.name} resumed vs uninterrupted: {k} off by "
+               f"{err:.3e}, bar {bar:.3e} (2 ulps of its largest entry)")
+        if err > 0 and err / bar >= worst:
+            worst, leaf = err / bar, k
+    exact = all(torch.equal(resumed["flat"][k], w)
+                for k, w in whole["flat"].items())
+    step_s = sorted(whole["step_s"][1:])
+    med = step_s[len(step_s) // 2]
+    print(f"[train] {cfg.name} ({cfg.num_layers} layers, batch {batch} x "
+          f"{seq}, grad_accum {TRAIN_ACCUM}, adamw lr {TRAIN_LR:g} wd 0.1): "
+          f"losses {losses}; resumed losses {resumed['losses']}; "
+          f"{med * 1e3:.1f} ms/step (median of steps 2-{TRAIN_STEPS}, host "
+          f"clock), {batch * seq / med:.0f} tokens/s; runs of {whole['wall_s']:.1f} "
+          f"s uninterrupted, {first['wall_s']:.1f} s to the checkpoint, "
+          f"{resumed['wall_s']:.1f} s resumed; flash launches "
+          f"{whole['launches']}, {first['launches']} and "
+          f"{resumed['launches']} (6, 3 and 3 steps); peak "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB; {_gpu_name()}")
+    print(f"[train] {cfg.name}: resumed vs uninterrupted "
+          + ("bit for bit" if exact else
+             f"within {worst:.3f} of the bar ({leaf})")
+          + f" (bar: 2 ulps of each leaf's largest entry); phase "
+          f"{time.perf_counter() - t0:.1f} s")
+
+
+def phase_train_step_smoke(arch):
+    """One `make_train_step` step with two micro-batches on the card
+    against the CPU: the loss, each leaf's first moments (see
+    `STEP_GRAD_X`), and each leaf within `STEP_SHARE` of its update plus
+    2 ulps at the elements whose CPU first moment is 0 or lies over the
+    leaf's bar (AdamW's first step moves an element by lr whatever its
+    gradient's size, so an element whose gradient is rounding takes an
+    unsettled step); how many elements each leaf leaves out is printed."""
+    from repro_torch import configs
+    from repro_torch.common.bridge import flatten_with_paths, tree_map
+    from repro_torch.common.float64 import float_is_double
+    from repro_torch.launch import steps
+    from repro_torch.models import lm
+
+    cfg = dataclasses.replace(configs.get_config(arch, smoke=True),
+                              grad_accum=2)
+    lr, floor = SMOKE_LR.get(arch, LR), STEP_GRAD_FLOOR.get(arch, 1e-4)
+    gen = torch.Generator().manual_seed(3)
+    toks = torch.randint(0, cfg.vocab_size, (4, 65), generator=gen)
+    runs = {}
+    for run in ("cuda", "cpu", "float64"):
+        device = "cpu" if run == "float64" else run
+        params = lm.init_params(cfg, 0, device)
+        c, ctx = cfg, contextlib.nullcontext()
+        if run == "float64":
+            params = tree_map(lambda t: t.double(), params)
+            c = dataclasses.replace(cfg, dtype="float64",
+                                    param_dtype="float64")
+            ctx = float_is_double()
+        with ctx:
+            step, opt = steps.make_train_step(c, lr=lr)
+            new, state, m = step(params, opt.init(params),
+                                 {"tokens": toks[:, :-1].to(device),
+                                  "labels": toks[:, 1:].to(device)})
+        runs[run] = (float(m["loss"]),
+                     {k: v.cpu() for k, v in flatten_with_paths(new)},
+                     {k: v.cpu().double() for k, v in
+                      flatten_with_paths(state.mu)})
+    init = dict(flatten_with_paths(lm.init_params(cfg, 0, "cpu")))
+    (gpu_loss, gpu, gpu_mu), (cpu_loss, cpu, cpu_mu) = runs["cuda"], runs["cpu"]
+    f64_mu = runs["float64"][2]
+    _check(abs(gpu_loss - cpu_loss) <= 2e-4,
+           f"{arch} SMOKE train step loss card {gpu_loss}, CPU {cpu_loss}")
+    worst, leaf, gworst, gleaf, left_out, n_all = 0.0, None, 0.0, None, {}, 0
+    for k, w in cpu.items():
+        g = cpu_mu[k].abs()
+        top = g.max().item()
+        if top == 0:
+            continue
+        spread = (cpu_mu[k] - f64_mu[k]).abs().max().item() / top
+        gtol = max(STEP_GRAD_X * spread, floor)
+        gerr = (gpu_mu[k] - cpu_mu[k]).abs().max().item()
+        _check(gerr <= gtol * top, f"{arch} SMOKE train step: {k} first "
+               f"moment off by {gerr / top:.3e} of its largest, bar "
+               f"{gtol:.3e} ({STEP_GRAD_X} x its CPU fp32 distance from "
+               f"float64, {spread:.3e}, at least {floor:g})")
+        if gerr / (gtol * top) >= gworst:
+            gworst, gleaf = gerr / (gtol * top), f"{k}, bar {gtol:.1e}"
+        update = (w - init[k]).abs().max().item()
+        ulp = torch.finfo(w.dtype).eps * w.abs().max().item()
+        bar = STEP_SHARE * update + 2 * ulp
+        settled = (g > gtol * top) | (g == 0)
+        n_all += g.numel()
+        if not settled.all():
+            left_out[k] = int((~settled).sum())
+        err = (gpu[k] - w).abs()[settled]
+        err = err.max().item() if err.numel() else 0.0
+        _check(err <= bar, f"{arch} SMOKE train step: {k} off by {err:.3e}, "
+               f"update {update:.3e}, bar {bar:.3e}")
+        if err > 0 and err / bar >= worst:
+            worst, leaf = err / bar, k
+    print(f"[reference] {arch} SMOKE make_train_step (grad_accum 2, adamw lr "
+          f"{lr:g}): card vs CPU loss {gpu_loss!r} vs {cpu_loss!r}; first "
+          f"moments within {gworst:.3f} of their leaf's bar ({gleaf}; "
+          f"{STEP_GRAD_X} x the leaf's CPU fp32 distance from float64, at "
+          f"least {floor:g}); params within {worst:.3f} of the bar ({leaf}; "
+          f"{STEP_SHARE:g} of the leaf's update + 2 ulps, where the first "
+          f"moment is 0 or over its leaf's bar); left out "
+          f"{sum(left_out.values())} of {n_all} elements: {left_out}")
+
+
 # The paper's CNN path (`repro_torch.examples.paper_reproduction`): each
 # Table I dataset's model at the data sizes the repo runs it at, and the
 # phases that run it; "row" is the MNIST row in full (3 policies x 10
@@ -1474,6 +1990,16 @@ def main():
         del d
     print(f"[main] launches over the four main paths "
           f"({', '.join(path_launches)}): {_total_launches(path_launches)}")
+    t_phase = time.perf_counter()
+    for arch in path_launches:
+        phase_serve(arch)
+    phase_decode_smoke()
+    phase_train()
+    for arch in STEP_ARCHS:
+        phase_train_step_smoke(arch)
+    print(f"[times] the decode path and the drivers (phase_serve, "
+          f"phase_train, one train step of each SMOKE config): "
+          f"{time.perf_counter() - t_phase:.1f} s")
     for arch in REAL_PATHS:
         phase_real(arch)
     from repro_torch import configs

@@ -127,17 +127,14 @@ def _to_numpy(t: torch.Tensor) -> np.ndarray:
     return t.numpy()
 
 
-def params_from_numpy(tree: Dict[str, Any], cfg,
-                      device: str = "cuda") -> Dict[str, Any]:
-    """The port's parameters from a JAX parameter tree given as numpy
-    arrays (`jax.tree.map(np.asarray, params)`). Every key, shape and
-    dtype must be the one `models.lm.param_schema(cfg)` declares."""
-    from repro_torch.models import lm
-    want = dict(lm.param_shapes(cfg))
+def _from_numpy(tree: Dict[str, Any], want: Dict[str, Any], device,
+                what: str) -> Dict[str, Any]:
+    """The port's tensors from a tree of numpy arrays whose every key,
+    shape and dtype must be those of `want` (key -> (shape, dtype))."""
     flat = dict(flatten_with_paths(tree))
     if set(flat) != set(want):
         raise ValueError(
-            f"parameter keys differ: missing {sorted(set(want) - set(flat))}, "
+            f"{what} keys differ: missing {sorted(set(want) - set(flat))}, "
             f"unexpected {sorted(set(flat) - set(want))}")
     out = {}
     for key, arr in flat.items():
@@ -145,14 +142,35 @@ def params_from_numpy(tree: Dict[str, Any], cfg,
         shape, dtype = want[key]
         if tuple(t.shape) != shape or t.dtype != dtype:
             raise ValueError(f"{key}: got {tuple(t.shape)} {t.dtype}, "
-                             f"schema says {shape} {dtype}")
+                             f"the {what} says {shape} {dtype}")
         out[key] = t.to(device)
     return unflatten(out)
 
 
+def params_from_numpy(tree: Dict[str, Any], cfg,
+                      device: str = "cuda") -> Dict[str, Any]:
+    """The port's parameters from a JAX parameter tree given as numpy
+    arrays (`jax.tree.map(np.asarray, params)`). Every key, shape and
+    dtype must be the one `models.lm.param_schema(cfg)` declares."""
+    from repro_torch.models import lm
+    return _from_numpy(tree, dict(lm.param_shapes(cfg)), device,
+                       "parameter schema")
+
+
+def cache_from_numpy(tree: Dict[str, Any], cfg, batch: int, max_len: int,
+                     device: str = "cuda") -> Dict[str, Any]:
+    """The port's decode cache from a JAX cache tree given as numpy
+    arrays (`lm.init_cache(cfg, batch, max_len)` of the JAX package, or
+    one `decode_step` returned). Every key, shape and dtype must be the
+    one `models.lm.cache_shapes(cfg, batch, max_len)` declares."""
+    from repro_torch.models import lm
+    return _from_numpy(tree, dict(lm.cache_shapes(cfg, batch, max_len)),
+                       device, "cache layout")
+
+
 def params_to_numpy(params: Dict[str, Any]) -> Dict[str, Any]:
-    """The port's parameters as a nested dict of numpy arrays, keyed and
-    laid out as the JAX package's parameter tree."""
+    """The port's parameters (or a decode cache) as a nested dict of
+    numpy arrays, keyed and laid out as the JAX package's tree."""
     return unflatten({k: _to_numpy(t)
                       for k, t in flatten_with_paths(params)})
 

@@ -13,7 +13,8 @@ are copied unchanged.
 Fields that only steer the JAX package's TPU path are left out:
 `use_pallas` (the port always runs its kernels on the card),
 `attn_chunk` (the chunked-attention fallback is not ported),
-`scan_layers`, `grad_accum` and `sharding_overrides`.
+`scan_layers` and `sharding_overrides`. `grad_accum` steers
+`launch/steps.py::make_train_step`, as in the JAX package.
 """
 from __future__ import annotations
 
@@ -110,6 +111,7 @@ class ModelConfig:
     # misc
     norm_eps: float = 1e-5
     tie_embeddings: bool = False
+    grad_accum: int = 1                # microbatches per train step
     dtype: str = "bfloat16"
     param_dtype: str = "bfloat16"
     remat: bool = True

@@ -15,3 +15,10 @@ def require_device(device, who: str) -> torch.device:
             f"{who}: no CUDA device is available; pass device='cpu' to "
             f"run on the CPU")
     return dev
+
+
+def synchronize(dev: torch.device) -> None:
+    """Wait for the work queued on `dev` (a no-op on the CPU), so a host
+    clock read after it times the work, not its enqueueing."""
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)

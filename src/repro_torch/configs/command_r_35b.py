@@ -9,6 +9,7 @@ FULL = ModelConfig(
     num_layers=40, d_model=8192, num_heads=64, num_kv_heads=8,
     d_ff=22528, vocab_size=256000,
     pattern=(ATTN,), mlp_kind="swiglu", qkv_bias=False,
+    grad_accum=2,
 )
 
 SMOKE = ModelConfig(

@@ -11,6 +11,7 @@ FULL = ModelConfig(
     pattern=(ATTN,), mlp_kind="swiglu",
     moe=MoEConfig(num_experts=16, top_k=4, d_ff=10752,
                   capacity_factor=1.25, group_size=512),
+    grad_accum=4,
 )
 
 SMOKE = ModelConfig(

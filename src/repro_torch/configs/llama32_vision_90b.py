@@ -13,6 +13,7 @@ FULL = ModelConfig(
     pattern=(ATTN, ATTN, ATTN, ATTN, CROSS_ATTN),
     n_cond_tokens=6400,   # 4 tiles x 1600 patches
     mlp_kind="swiglu",
+    grad_accum=4,
 )
 
 SMOKE = ModelConfig(

@@ -8,6 +8,7 @@ FULL = ModelConfig(
     num_layers=80, d_model=8192, num_heads=64, num_kv_heads=8,
     d_ff=49152, vocab_size=152064,
     pattern=(ATTN,), mlp_kind="swiglu", qkv_bias=True,
+    grad_accum=4,
 )
 
 SMOKE = ModelConfig(

@@ -46,7 +46,7 @@ import torch
 from repro_torch import configs
 from repro_torch.common.bridge import flatten_with_paths, unflatten
 from repro_torch.common.config import CROSS_ATTN, ClientProfile, ModelConfig
-from repro_torch.common.device import require_device
+from repro_torch.common.device import require_device, synchronize
 from repro_torch.comms.payload import UpdatePayload
 from repro_torch.data.synthetic import token_stream
 from repro_torch.fl.server import ServerTrainerHooks
@@ -54,11 +54,6 @@ from repro_torch.fl.types import TrainerHooks
 from repro_torch.kernels.grad_quant import ops as gq
 from repro_torch.launch.roofline import WorkCounter, estimate_step_time
 from repro_torch.models import lm
-
-
-def _sync(dev: torch.device) -> None:
-    if dev.type == "cuda":
-        torch.cuda.synchronize(dev)
 
 
 class TorchTrainerHooks(TrainerHooks):
@@ -221,7 +216,7 @@ class TorchTrainerHooks(TrainerHooks):
             t0 = time.perf_counter()
             for i, b in enumerate(batches):
                 self._local_train(self.params, self.mu[i], b)
-            _sync(self.device)
+            synchronize(self.device)
             return time.perf_counter() - t0
 
         for _ in range(max(warmup, 1)):
@@ -271,7 +266,7 @@ def _per_call_s(fn, dev: torch.device, iters: int) -> float:
     calls queued behind a sleep kernel of about 50 ms, so the host's
     time to issue them, and any pause of the host meanwhile, stays out."""
     fn()
-    _sync(dev)
+    synchronize(dev)
     if dev.type != "cuda":
         t0 = time.perf_counter()
         for _ in range(iters):

@@ -8,7 +8,9 @@ seq, T=kv seq, D=d_model, N=q heads, K=kv heads, G=N//K, H=head_dim,
 F=d_ff, E=experts, C=capacity. Self attention always runs the
 flash-attention op, as the JAX path does under `cfg.use_pallas`; cross
 attention is plain PyTorch, as the JAX package never sends it to its
-kernel. The decode path is not ported yet (ROADMAP §1, queued item 6).
+kernel. `decode_attention` is the one-token step of every attention
+kind over a KV cache (a ring buffer of the window for local attention),
+plain PyTorch as in the JAX package, whose decode path runs no kernel.
 """
 from __future__ import annotations
 
@@ -176,6 +178,61 @@ def attention(p, x, cfg, *, kind, cond=None):
         out = fa_ops.flash_attention(q, k, v, causal=True, window=window,
                                      softcap=cfg.logit_softcap)
     return torch.einsum("bsnh,nhd->bsd", out, p["wo"])
+
+
+def decode_attention(p, x, cfg, *, kind, cache, pos, cond_kv=None):
+    """One-token decode. x: (B,1,D); cache: dict(k,v: (B,L,K,H)); `pos`:
+    (B,) current position per sequence. Returns (y, cache).
+
+    Global attention writes the new k/v row at slot `pos`, local
+    attention at `pos % L` of a ring buffer of L = window slots; both
+    write in place (the JAX package returns a new cache and its step
+    donates the old one), and the cache comes back as given. A cross
+    layer reads `cond_kv` (k, v: (B,T,K,H)) and leaves `cache` alone.
+    Scores and softmax are fp32 with -1e30 masking, grouped (B,K,G,H)."""
+    B = x.shape[0]
+    nq, nk, h = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
+    g = nq // nk
+
+    q = torch.einsum("bsd,dnh->bsnh", x, p["wq"])
+    if cfg.qkv_bias:
+        q = q + p["bq"]
+
+    if kind == C.CROSS_ATTN:
+        # static cross KV, precomputed at prefill time
+        k, v = cond_kv["k"], cond_kv["v"]
+        valid = torch.ones((B, k.shape[1]), dtype=torch.bool,
+                           device=x.device)
+    else:
+        knew = torch.einsum("btd,dnh->btnh", x, p["wk"])
+        vnew = torch.einsum("btd,dnh->btnh", x, p["wv"])
+        if cfg.qkv_bias:
+            knew = knew + p["bk"]
+            vnew = vnew + p["bv"]
+        q = rope(q, pos[:, None], cfg.rope_theta)
+        knew = rope(knew, pos[:, None], cfg.rope_theta)
+        k, v = cache["k"], cache["v"]
+        L = k.shape[1]
+        # a ring buffer of the window: W tokens, the current one included,
+        # as the flash kernel's kpos > qpos - window
+        slot = pos % L if kind == C.LOCAL_ATTN else pos
+        bidx = torch.arange(B, device=x.device)
+        k[bidx, slot] = knew[:, 0].to(k.dtype)
+        v[bidx, slot] = vnew[:, 0].to(v.dtype)
+        idx = torch.arange(L, device=x.device)
+        if kind == C.LOCAL_ATTN:
+            valid = (idx[None] <= slot[:, None]) | (pos[:, None] >= L)
+        else:
+            valid = idx[None] <= pos[:, None]
+
+    qf = q.reshape(B, nk, g, h).float()
+    s = torch.einsum("bkgh,btkh->bkgt", qf, k.float())
+    s = _soft_cap(s / math.sqrt(h), cfg.logit_softcap)
+    s = torch.where(valid[:, None, None], s, -1e30)
+    pr = torch.softmax(s, dim=-1)
+    o = torch.einsum("bkgt,btkh->bkgh", pr, v.float())
+    o = o.reshape(B, 1, nq, h).to(x.dtype)
+    return torch.einsum("bsnh,nhd->bsd", o, p["wo"]), cache
 
 
 # ---------------------------------------------------------------------------

@@ -5,9 +5,11 @@ Counterpart of the JAX package's `models/ssm.py`, with its shape
 letters: b=batch, s=seq, d=d_model, i=d_inner, h=ssm heads, p=head_dim,
 n=d_state, g=B/C groups, w=lru width. The mixes always run the scan
 kernels' ops, as the JAX mixes do under `cfg.use_pallas`: `ssd` for
-Mamba2 and `rglru_scan` for RG-LRU. The one-token decode functions and
-their state helpers come with the decode path (ROADMAP §1, queued
-item 6).
+Mamba2 and `rglru_scan` for RG-LRU. The one-token decode steps
+(`mamba2_decode`, `rglru_decode`) and their zero states are plain
+PyTorch, as in the JAX package, whose decode path runs no kernel: the
+conv state is kept in the activation dtype, the SSM state and `h` in
+fp32.
 """
 from __future__ import annotations
 
@@ -118,6 +120,59 @@ def mamba2_mix(p, x, cfg):
     return torch.einsum("bsi,id->bsd", y, p["wo"])
 
 
+def mamba2_init_state(cfg, batch, dtype, device):
+    s = cfg.ssm
+    d_in, nh, conv_dim = mamba2_dims(cfg)
+    return {
+        "conv": torch.zeros((batch, s.conv_width - 1, conv_dim),
+                            dtype=dtype, device=device),
+        "ssm": torch.zeros((batch, nh, s.head_dim, s.d_state),
+                           dtype=torch.float32, device=device),
+    }
+
+
+def mamba2_decode(p, x, cfg, state):
+    """One-token decode. x: (b,1,d) -> ((b,1,d), new state)."""
+    s_cfg = cfg.ssm
+    b = x.shape[0]
+    d_in, nh, _ = mamba2_dims(cfg)
+    gn = s_cfg.n_groups * s_cfg.d_state
+
+    z = torch.einsum("bsd,di->bsi", x, p["wz"])[:, 0]
+    xi = torch.einsum("bsd,di->bsi", x, p["wx"])[:, 0]
+    Bm = torch.einsum("bsd,dn->bsn", x, p["wB"])[:, 0]
+    Cm = torch.einsum("bsd,dn->bsn", x, p["wC"])[:, 0]
+    dt = torch.einsum("bsd,dh->bsh", x, p["wdt"])[:, 0]
+
+    conv_in = torch.cat([xi, Bm, Cm], dim=-1)             # (b, conv_dim)
+    window = torch.cat([state["conv"], conv_in[:, None]], dim=1)
+    conv_out = F.silu(torch.einsum("bkc,kc->bc", window, p["conv_w"])
+                      + p["conv_b"])
+
+    xi = conv_out[:, :d_in]
+    Bm = conv_out[:, d_in:d_in + gn]
+    Cm = conv_out[:, d_in + gn:]
+    dt = F.softplus(dt.float() + p["dt_bias"])
+    A = -torch.exp(p["A_log"])
+    a = torch.exp(dt * A)                                  # (b, nh)
+    xh = xi.reshape(b, nh, s_cfg.head_dim).float()
+    hpg = nh // s_cfg.n_groups
+    Bh = torch.repeat_interleave(
+        Bm.reshape(b, s_cfg.n_groups, s_cfg.d_state), hpg, dim=1).float()
+    Ch = torch.repeat_interleave(
+        Cm.reshape(b, s_cfg.n_groups, s_cfg.d_state), hpg, dim=1).float()
+
+    xbar = xh * dt[..., None]
+    new_ssm = (state["ssm"] * a[..., None, None]
+               + torch.einsum("bhp,bhn->bhpn", xbar, Bh))
+    y = torch.einsum("bhpn,bhn->bhp", new_ssm, Ch)
+    y = y + xh * p["D"][:, None]
+    y = y.reshape(b, 1, d_in).to(x.dtype)
+    y = rms_norm(y * F.silu(z)[:, None], {"scale": p["norm"]}, cfg.norm_eps)
+    out = torch.einsum("bsi,id->bsd", y, p["wo"])
+    return out, {"conv": window[:, 1:], "ssm": new_ssm}
+
+
 # ===========================================================================
 # RG-LRU (Griffin / RecurrentGemma recurrent block).
 # ===========================================================================
@@ -169,3 +224,25 @@ def rglru_mix(p, x, cfg):
     h = rglru_ops.rglru_scan(torch.log(torch.clamp(a, min=1e-37)), bvec)
     h = h.to(x.dtype)
     return torch.einsum("bsw,wd->bsd", gate * h, p["wo"])
+
+
+def rglru_init_state(cfg, batch, dtype, device):
+    w = cfg.rglru.lru_width or cfg.d_model
+    k = cfg.rglru.conv_width
+    return {
+        "conv": torch.zeros((batch, k - 1, w), dtype=dtype, device=device),
+        "h": torch.zeros((batch, w), dtype=torch.float32, device=device),
+    }
+
+
+def rglru_decode(p, x, cfg, state):
+    """One-token decode. x: (b,1,d) -> ((b,1,d), new state)."""
+    gate = F.gelu(torch.einsum("bsd,dw->bsw", x, p["w_gate"]),
+                  approximate="tanh")[:, 0]
+    u = torch.einsum("bsd,dw->bsw", x, p["w_in"])[:, 0]      # (b,w)
+    window = torch.cat([state["conv"], u[:, None]], dim=1)
+    u = torch.einsum("bkw,kw->bw", window, p["conv_w"]) + p["conv_b"]
+    a, bvec = _rglru_coeffs(p, u.float(), cfg)
+    h = state["h"] * a + bvec
+    out = torch.einsum("bw,wd->bd", gate * h.to(x.dtype), p["wo"])[:, None]
+    return out, {"conv": window[:, 1:], "h": h}

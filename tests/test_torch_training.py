@@ -306,6 +306,9 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     files = sorted((REPO / "src" / "repro_torch").rglob("*.py"))
     files.append(REPO / "chip_smoke.py")
     assert len(files) > 14
+    scanned = {f.relative_to(REPO).as_posix() for f in files}
+    assert {f"src/repro_torch/launch/{m}.py"
+            for m in ("steps", "train", "serve")} <= scanned
     for f in files:
         bad = _imported_roots(f) & {"jax", "jaxlib", "flax", "repro"}
         assert not bad, f"{f.relative_to(REPO)} imports {sorted(bad)}"

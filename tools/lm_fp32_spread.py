@@ -47,19 +47,9 @@ from repro import configs as jconfigs  # noqa: E402
 from repro.models import lm as jlm  # noqa: E402
 from repro_torch import configs  # noqa: E402
 from repro_torch.common import bridge  # noqa: E402
+from repro_torch.common.float64 import float_is_double  # noqa: E402
 from repro_torch.models import lm  # noqa: E402
 from test_models import make_batch  # noqa: E402
-
-
-@contextlib.contextmanager
-def _float_is_double():
-    """Every `.float()` of the port's model code computes in float64."""
-    real = torch.Tensor.float
-    torch.Tensor.float = torch.Tensor.double
-    try:
-        yield
-    finally:
-        torch.Tensor.float = real
 
 
 def _port(arch, jp, batch, f64):
@@ -72,7 +62,7 @@ def _port(arch, jp, batch, f64):
               for k, v in bridge.flatten_with_paths(jp)}
     tb = {k: (torch.from_numpy(v).long() if v.dtype.kind == "i"
               else torch.from_numpy(v).to(dt)) for k, v in batch.items()}
-    with _float_is_double() if f64 else contextlib.nullcontext():
+    with float_is_double() if f64 else contextlib.nullcontext():
         params = bridge.unflatten(leaves)
         logits, _ = lm.forward(params, cfg, tb["tokens"], cond=tb.get("cond"))
         grads = torch.autograd.grad(lm.loss_fn(params, cfg, tb),

@@ -45,6 +45,22 @@ ssd launches must all go to the tensor-core kernel, and recurrentgemma's
 backward must run the fused RG-LRU backward, never the reverse scan
 alone.
 
+Then FL in the mesh (`phase_mesh_fl`, `[mesh]` lines), at phi3-mini-3.8b's
+main path: one `repro_torch.fl.mesh_fl.make_fl_round_step` round of two
+stacked clients (2 local steps each, weights [3, 1]), whose slots must
+be bit-identical after the barrier, whose losses must equal
+`TorchTrainerHooks._local_train`'s from the same start on the same
+batches, and which must launch flash 16 times (2 clients x 2 steps x 2
+layers x 2 under remat); the int8 ring (`fedavg_sync_compressed`) over
+two gloo ranks in two processes on the one card, whose models must be
+bit-identical and within the int8 bound of the plain barrier, each rank
+receiving (n-1)(numel + 8) bytes over the leaves; one local step
+counted on the meta device (`launch/dryrun.py`'s way) and on the card,
+whose FLOPs and kernel work must be equal and bytes within
+`MESH_BYTES_TOL`; the FULL phi3 train_4k cell's dry-run roofline
+against the card's measured peaks; and phi3 SMOKE's round on the card
+against the CPU.
+
 Then the decode path and the drivers (`repro_torch.launch`). At each of
 the four main paths' full width and depth (`phase_serve`), the serving
 driver prefills a prompt of 1024 tokens (recurrentgemma-2b: 2100, past
@@ -1496,6 +1512,327 @@ def phase_train_step_smoke(arch):
 # phases that run it; "row" is the MNIST row in full (3 policies x 10
 # epochs), "round" one FedCostAware round (sync engine), "epoch" a local
 # epoch only
+# FL in the mesh (`repro_torch/fl/mesh_fl.py`) at phi3-mini-3.8b's main
+# path: C stacked clients of `LOCAL_STEPS` steps a round, weights [3, 1],
+# at the hooks' lr. Their losses are held to `TorchTrainerHooks.
+# _local_train`'s from the same start on the same batches within
+# `MESH_LOSS_TOL` of the loss (the same ops in the same order on one card:
+# no gap is expected, the bar leaves room for an atomic sum's order); the
+# meta device's count of one local step is held to the card's: FLOPs and
+# each kernel's work exactly, bytes within `MESH_BYTES_TOL` (the card's
+# flash wrapper would copy a q, k or v that broke TMA's alignment, which
+# the meta branch does not; at this path none does, and the bytes came
+# out equal); phi3 SMOKE's round on the card is held to the
+# CPU's at `MESH_SMOKE_LR`, the CPU tests' lr, with the multi-step bar of
+# ROADMAP §3 (2% of each leaf's update plus 2 ulps)
+MESH_ARCH, MESH_C, MESH_WEIGHTS = "phi3-mini-3.8b", 2, (3.0, 1.0)
+MESH_LOSS_TOL, MESH_BYTES_TOL, MESH_SMOKE_LR = 1e-5, 1e-3, 2e-4
+
+
+def _mesh_batches(cfg, batch, seq):
+    """Each client's `LOCAL_STEPS` batches of the hooks' token streams,
+    as the hooks draw them, and stacked as (C, LOCAL_STEPS, B, S)."""
+    import numpy as np
+    from repro_torch.benchmarks.table1 import LOCAL_STEPS
+    from repro_torch.data.synthetic import token_stream
+    rows = [[next(s) for _ in range(LOCAL_STEPS)] for s in (
+        token_stream(cfg.vocab_size, batch, seq, seed=17 * i)
+        for i in range(MESH_C))]
+    return {k: np.stack([np.stack([r[k] for r in c]) for c in rows]
+                        ).astype(np.int64) for k in ("tokens", "labels")}
+
+
+def _stacked_round(cfg, params, batches, lr, device):
+    """One `make_fl_round_step` round of the stacked clients from
+    `params`: (aggregate, losses, round seconds on the host clock)."""
+    from repro_torch.benchmarks.table1 import LOCAL_STEPS
+    from repro_torch.common.bridge import tree_map
+    from repro_torch.fl import mesh_fl
+    stk = mesh_fl.stack_params_for_clients(params, MESH_C)
+    mu = tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32,
+                                        device=device), stk)
+    b = {k: torch.from_numpy(v).to(device) for k, v in batches.items()}
+    step = mesh_fl.make_fl_round_step(cfg, lr, local_steps=LOCAL_STEPS)
+    w = torch.tensor(MESH_WEIGHTS, device=device)
+    _sync(device)
+    t0 = time.perf_counter()
+    agg, _, losses = step(stk, mu, b, w)
+    losses = losses.cpu()
+    return agg, losses, time.perf_counter() - t0
+
+
+def _sync(device):
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def _mesh_rank(group, rank, n, cfg, batches, device):
+    """One client of the int8 ring, on the card, over a gloo group of
+    processes: its round (`make_fl_round_step(compressed=True)` over
+    `group`), then the pieces timed alone: the client's local training
+    (the same round on its slot alone, no barrier), the compressed
+    barrier and the plain one over the group. Returns what the parent
+    checks."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    import torch.distributed as dist
+    from repro_torch.benchmarks.table1 import LOCAL_STEPS
+    from repro_torch.common.bridge import flatten_with_paths, tree_map
+    from repro_torch.fl import mesh_fl
+    from repro_torch.models import lm
+
+    params = lm.init_params(cfg, 0, device)
+    stk = mesh_fl.stack_params_for_clients(params, 1)
+    mu = tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32,
+                                        device=device), stk)
+    b = {k: torch.from_numpy(v[rank:rank + 1]).to(device)
+         for k, v in batches.items()}
+    w = torch.tensor(MESH_WEIGHTS, device=device)
+
+    def timed(fn):
+        _sync(device)
+        dist.barrier(group)
+        t0 = time.perf_counter()
+        out = fn()
+        _sync(device)
+        return out, time.perf_counter() - t0
+
+    step = mesh_fl.make_fl_round_step(cfg, LR, local_steps=LOCAL_STEPS,
+                                      compressed=True, group=group, n_pods=n)
+    mesh_fl.reset_collective_stats()
+    (agg, _, losses), first_s = timed(lambda: step(stk, mu, b, w))
+    nbytes = mesh_fl.collective_stats().bytes_by_kind
+    _, round_s = timed(lambda: step(stk, mu, b, w))
+    # the same client's training alone: a stacked round of its one slot
+    # (its barrier of one client is the identity)
+    alone = mesh_fl.make_fl_round_step(cfg, LR, local_steps=LOCAL_STEPS)
+    (trained, _, _), train_s = timed(
+        lambda: alone(stk, mu, b, w[rank:rank + 1]))
+    comp_again, comp_s = timed(lambda: mesh_fl.fedavg_sync_compressed(
+        trained, params, w, group, n))
+    plain, plain_s = timed(lambda: mesh_fl.fedavg_sync(trained, w, group))
+    # the int8 bound of tests/test_mesh_fl.py, 2 amax(delta) / 127 with
+    # amax over both clients, plus one bf16 rounding of each side
+    eps = torch.finfo(cfg.param_torch_dtype).eps
+    flat_c, flat_p, flat_t = (dict(flatten_with_paths(t))
+                              for t in (agg, plain, trained))
+    worst, identical = 0.0, True
+    for k, g in flatten_with_paths(params):
+        amax = (flat_t[k][0].float() - g.float()).abs().max()
+        dist.all_reduce(amax, op=dist.ReduceOp.MAX, group=group)
+        c, p = flat_c[k][0].float(), flat_p[k][0].float()
+        bar = 2 * amax / 127 + eps * p.abs() + 1e-6
+        worst = max(worst, ((c - p).abs() / bar).max().item())
+        # rank 0's bytes to every rank
+        mine = flat_c[k][0].contiguous().view(torch.uint8)
+        other = mine.clone()
+        dist.broadcast(other, 0, group=group)
+        identical &= torch.equal(other, mine)
+    same = all(torch.equal(a, b_) for a, b_ in zip(
+        (t for _, t in flatten_with_paths(agg)),
+        (t for _, t in flatten_with_paths(comp_again))))
+    return dict(loss=float(losses[0]), bytes=nbytes, first_s=first_s,
+                round_s=round_s, train_s=train_s, comp_s=comp_s, plain_s=plain_s, worst=worst,
+                identical=identical, same=same,
+                numels=[t.numel() for _, t in flatten_with_paths(params)],
+                peak_gb=(torch.cuda.max_memory_allocated() / 1e9
+                         if torch.device(device).type == "cuda" else 0.0))
+
+
+def _count_local_step(cfg, params, batch, device):
+    """One local step of one client (`make_fl_round_step`, C = 1, one
+    step) under `WorkCounter`."""
+    from repro_torch.common.bridge import tree_map
+    from repro_torch.fl import mesh_fl
+    from repro_torch.launch.roofline import WorkCounter
+    stk = mesh_fl.stack_params_for_clients(params, 1)
+    mu = tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32,
+                                        device=device), stk)
+    step = mesh_fl.make_fl_round_step(cfg, LR, local_steps=1)
+    with WorkCounter() as wc:
+        step(stk, mu, batch, torch.ones(1, device=device))
+    return wc
+
+
+def phase_mesh_fl(dev="cuda"):
+    """FL in the mesh at phi3-mini-3.8b's main path on the card: a plain
+    round of stacked clients, the int8 ring over two gloo ranks on the one
+    card, the dry run's count of a local step against the card's, and
+    phi3 SMOKE's round against the CPU. Returns the plain round's
+    launches."""
+    import tempfile
+    import numpy as np
+    from repro_torch import configs
+    from repro_torch.benchmarks.table1 import LOCAL_STEPS, main_path
+    from repro_torch.common.bridge import flatten_with_paths
+    from repro_torch.fl import mesh_fl, mesh_ranks
+    from repro_torch.fl.training import TorchTrainerHooks, _measure_peaks
+    from repro_torch.launch import dryrun
+    from repro_torch.launch import mesh as M
+    from repro_torch.models import lm
+
+    t_phase = time.perf_counter()
+    gpu = _gpu_name()
+    cfg, batch, seq = main_path(MESH_ARCH)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    batches = _mesh_batches(cfg, batch, seq)
+    # the hooks draw the same start (seed 0) and the same streams
+    hooks = TorchTrainerHooks(CLIENTS, cfg=cfg, local_steps=LOCAL_STEPS,
+                              batch=batch, seq=seq, lr=LR, seed=0,
+                              device=dev)
+    hb = hooks._next_batches()
+    _check(all(np.array_equal(hb[c][s][k].cpu().numpy(),
+                              batches[k][c, s])
+               for c in range(MESH_C) for s in range(LOCAL_STEPS)
+               for k in batches), "mesh FL batches differ from the hooks'")
+    params = hooks.params
+    init = {k: v.clone() for k, v in flatten_with_paths(params)}
+
+    # the plain round, the main path of this phase
+    counters = _reset_counters()
+    agg, losses, round_s = _stacked_round(cfg, params, batches, LR, dev)
+    launches = _launches(counters)
+    want = {name: 0 for name in counters}
+    want["flash_attention_fwd"] = (MESH_C * LOCAL_STEPS * (1 + cfg.remat)
+                                   * _layer_launches(cfg, "attn"))
+    _check(launches == want, f"mesh FL round launched {launches}, want {want}")
+    flat = dict(flatten_with_paths(agg))
+    _check(all(torch.equal(v[0], v[c]) for v in flat.values()
+               for c in range(1, MESH_C)),
+           "mesh FL: client slots differ after the barrier")
+    moved = sum(not torch.equal(flat[k][0], init[k]) for k in init)
+    _check(moved == len(init) and bool(torch.isfinite(losses).all()),
+           f"mesh FL: {moved} of {len(init)} leaves moved, losses {losses}")
+    hook_losses = [float(hooks._local_train(params, hooks.mu[c], hb[c])[2]
+                         .mean()) for c in range(MESH_C)]
+    gap = max(abs(a - b) / abs(b) for a, b in zip(losses.tolist(),
+                                                   hook_losses))
+    _check(gap <= MESH_LOSS_TOL, f"mesh FL losses {losses.tolist()} vs the "
+           f"hooks' {hook_losses}: {gap:.3e} of the loss")
+    rounds = [_stacked_round(cfg, params, batches, LR, dev)[2]
+              for _ in range(3)]
+    stacked_new = mesh_fl.stack_params_for_clients(params, MESH_C)
+    w = torch.tensor(MESH_WEIGHTS, device=dev)
+    agg_ms = _time_ms(lambda: mesh_fl.fedavg_sync(stacked_new, w), iters=5)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    print(f"[mesh] {cfg.name} ({cfg.num_layers} layers, {MESH_C} stacked "
+          f"clients x {LOCAL_STEPS} steps, batch {batch} x {seq}, weights "
+          f"{list(MESH_WEIGHTS)}, lr {LR:g}): losses {losses.tolist()}, the "
+          f"hooks' {hook_losses} ({gap:.3e} of the loss, bar "
+          f"{MESH_LOSS_TOL:g}); slots identical; launches {launches}; round "
+          f"{1e3 * sorted(rounds)[1]:.1f} ms (median of 3, host clock; first "
+          f"{1e3 * round_s:.1f}), plain barrier {agg_ms:.3f} ms (CUDA "
+          f"events); peak {peak:.2f} GB; {gpu}")
+    del hooks, agg, flat, stacked_new
+    gc.collect()
+    # the ranks' processes allocate on the same card: hand back what this
+    # process's allocator keeps cached from the earlier phases
+    torch.cuda.empty_cache()
+
+    # the int8 ring over two gloo ranks on the one card
+    with tempfile.TemporaryDirectory() as d:
+        t0 = time.perf_counter()
+        ranks = mesh_ranks.spawn_ranks(_mesh_rank, MESH_C,
+                                       os.path.join(d, "store"), cfg,
+                                       batches, dev, timeout=300)
+        spawn_s = time.perf_counter() - t0
+    ring = (MESH_C - 1) * sum(n + 8 for n in ranks[0]["numels"])
+    for r, out in enumerate(ranks):
+        _check(out["bytes"] == {"all-reduce": 0, "all-gather": ring},
+               f"rank {r} received {out['bytes']}, want {ring} B")
+        _check(out["identical"] and out["worst"] <= 1.0,
+               f"rank {r}: ranks identical {out['identical']}, worst "
+               f"{out['worst']:.3f} of the int8 bound")
+        gap = abs(out["loss"] - losses[r].item()) / abs(losses[r].item())
+        _check(gap <= MESH_LOSS_TOL, f"rank {r} loss {out['loss']} vs the "
+               f"stacked round's {losses[r].item()}")
+    print(f"[mesh] {cfg.name} int8 ring over {MESH_C} gloo ranks on the one "
+          f"card: ranks bit-identical; within {max(o['worst'] for o in ranks):.3f}"
+          f" of the int8 bound (2 amax(delta)/127 + one bf16 rounding); "
+          f"received {ring} B a rank ((n-1)(numel + 8) over "
+          f"{len(ranks[0]['numels'])} leaves); round "
+          + ", ".join(f"{1e3 * o['round_s']:.1f}" for o in ranks)
+          + " ms (first: "
+          + ", ".join(f"{1e3 * o['first_s']:.1f}" for o in ranks)
+          + " ms), its local training alone "
+          + ", ".join(f"{1e3 * o['train_s']:.1f}" for o in ranks)
+          + " ms, compressed barrier "
+          + ", ".join(f"{1e3 * o['comp_s']:.1f}" for o in ranks)
+          + " ms, plain barrier over gloo "
+          + ", ".join(f"{1e3 * o['plain_s']:.1f}" for o in ranks)
+          + " ms (host clock, by rank); peak "
+          + ", ".join(f"{o['peak_gb']:.2f}" for o in ranks)
+          + f" GB; the round's barrier equals the barrier alone on the same "
+          f"client, bit for bit: {[o['same'] for o in ranks]}; spawn to "
+          f"results {spawn_s:.1f} s; {gpu}")
+
+    # the dry run against the card: one local step counted on both
+    b1 = {k: torch.from_numpy(v[:1, :1]) for k, v in batches.items()}
+    meta = _count_local_step(cfg, lm.abstract_params(cfg),
+                             {k: v.to("meta") for k, v in b1.items()},
+                             "meta")
+    card = _count_local_step(cfg, params, {k: v.to(dev) for k, v in b1.items()},
+                             dev)
+    _check(meta.flops == card.flops and meta.kernels == card.kernels,
+           f"meta vs card: FLOPs {meta.flops} vs {card.flops}, kernels "
+           f"{meta.kernels} vs {card.kernels}")
+    rel = abs(meta.bytes_accessed - card.bytes_accessed) / card.bytes_accessed
+    differ = {op: (meta.bytes_by_op.get(op, 0), card.bytes_by_op.get(op, 0))
+              for op in set(meta.bytes_by_op) | set(card.bytes_by_op)
+              if meta.bytes_by_op.get(op, 0) != card.bytes_by_op.get(op, 0)}
+    _check(rel <= MESH_BYTES_TOL, f"meta vs card bytes {meta.bytes_accessed} "
+           f"vs {card.bytes_accessed} ({rel:.3e}); ops that differ {differ}")
+    print(f"[mesh] one local step, meta vs card: FLOPs {card.flops:.6e} "
+          f"equal, kernels {card.kernels} equal; bytes {meta.bytes_accessed:.6e}"
+          f" vs {card.bytes_accessed:.6e} ({rel:.3e}, bar {MESH_BYTES_TOL:g});"
+          f" aten ops that differ (meta, card bytes): {differ}")
+    peak_flops, hbm_bw = _measure_peaks(dev)
+    rec = dryrun.run_cell(MESH_ARCH, "train_4k",
+                          M.make_production_mesh(multi_pod=False), "single",
+                          peak_flops=peak_flops, hbm_bw=hbm_bw, verbose=False)
+    rl = rec["roofline"]
+    print(f"[mesh] dry run of the FULL {MESH_ARCH} train_4k cell on meta "
+          f"({rec['compile_s']} s): {rl['flops']:.4e} FLOP, "
+          f"{rl['bytes_accessed']:.4e} B, compute {rl['compute_s']:.3f} s, "
+          f"memory {rl['memory_s']:.3f} s, dominant {rl['dominant']}, useful "
+          f"{rl['useful_ratio']:.3f}, args a device of 256 "
+          f"{rec['memory']['argument_size_in_bytes']:.4e} B; against the "
+          f"measured peaks {peak_flops:.4e} FLOP/s, {hbm_bw:.4e} B/s; {gpu}")
+    del params, card
+    gc.collect()
+
+    # phi3 SMOKE's round on the card against the CPU
+    smoke = configs.get_config(MESH_ARCH, smoke=True)
+    sb = _mesh_batches(smoke, 2, 64)
+    runs = {}
+    for device in (dev, "cpu"):
+        p0 = lm.init_params(smoke, 0, device)
+        agg, lss, _ = _stacked_round(smoke, p0, sb, MESH_SMOKE_LR, device)
+        runs[device] = ({k: v[0].cpu() for k, v in flatten_with_paths(agg)},
+                        lss)
+    start = {k: v.cpu() for k, v in flatten_with_paths(
+        lm.init_params(smoke, 0, "cpu"))}
+    (gp, gl), (cp, cl) = runs[dev], runs["cpu"]
+    worst = 0.0
+    for k, c in cp.items():
+        update = (c - start[k]).abs().max().item()
+        bar = (2e-2 * update
+               + 2 * torch.finfo(c.dtype).eps * c.abs().max().item())
+        err = (gp[k] - c).abs().max().item()
+        _check(err <= bar, f"{smoke.name} mesh FL round card vs CPU: {k} off "
+               f"by {err:.3e}, bar {bar:.3e}")
+        worst = max(worst, err / bar)
+    _check((gl - cl).abs().max().item() <= 2e-4,
+           f"{smoke.name} mesh FL losses card {gl} vs CPU {cl}")
+    print(f"[mesh] {smoke.name} round (fp32, lr {MESH_SMOKE_LR:g}) card vs "
+          f"CPU: losses {gl.tolist()} vs {cl.tolist()}; params within "
+          f"{worst:.3f} of the bar (2% of each leaf's update + 2 ulps); phase "
+          f"{time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
 PAPER_RUNS = (("mnist", "row"), ("cifar10", "round"), ("aireadi", "round"),
               ("isic2019", "epoch"))
 PAPER_ACC = 0.8     # the reference's `tests/test_fl.py::test_fl_learns` bar
@@ -1857,19 +2194,22 @@ def _time_flash_fp32_h8(fa, gen):
           f"bound {bound:.6f} ms ({by}), fp32 SDPA {lib:.4f} ms")
 
 
-def phase_times(gen, path_launches, errs, deltas):
+def phase_times(gen, path_launches, mesh_launches, errs, deltas):
     """The kernels line: each kernel at its main path's shape. Launches
-    are those of the path that runs it at that shape, or of all four."""
+    are those of the paths that run it at that shape (phi3's flash: its
+    main path and its mesh FL round, `mesh_launches`), or of all of
+    them."""
     from repro_torch.kernels.flash_attention import ops as fa
     from repro_torch.kernels.grad_quant import ops as gq
     from repro_torch.kernels.rglru import ops as rg
     from repro_torch.kernels.ssd import ops as sd
     from repro_torch.launch import roofline as R
 
-    launches = _total_launches(path_launches)
+    launches = _total_launches({**path_launches, "mesh FL": mesh_launches})
     rows = [_flash_row(fa, gen, "flash_attention_fwd", MAIN_B, MAIN_S,
                        MAIN_N, MAIN_H, None,
-                       path_launches["phi3-mini-3.8b"]["flash_attention_fwd"],
+                       path_launches["phi3-mini-3.8b"]["flash_attention_fwd"]
+                       + mesh_launches["flash_attention_fwd"],
                        errs["flash_attention_fwd"]),
             _flash_row(fa, gen, FLASH_RG_ROW, *FLASH_RG,
                        path_launches["recurrentgemma-2b"]
@@ -1990,6 +2330,7 @@ def main():
         del d
     print(f"[main] launches over the four main paths "
           f"({', '.join(path_launches)}): {_total_launches(path_launches)}")
+    mesh_launches = phase_mesh_fl()
     t_phase = time.perf_counter()
     for arch in path_launches:
         phase_serve(arch)
@@ -2008,7 +2349,7 @@ def main():
             phase_small_reference(arch)
     phase_vlm_reference()
     phase_paper_path()
-    rows = phase_times(gen, path_launches, errs, deltas)
+    rows = phase_times(gen, path_launches, mesh_launches, errs, deltas)
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",

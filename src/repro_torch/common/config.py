@@ -12,9 +12,14 @@ are copied unchanged.
 
 Fields that only steer the JAX package's TPU path are left out:
 `use_pallas` (the port always runs its kernels on the card),
-`attn_chunk` (the chunked-attention fallback is not ported),
-`scan_layers` and `sharding_overrides`. `grad_accum` steers
-`launch/steps.py::make_train_step`, as in the JAX package.
+`attn_chunk` (the chunked-attention fallback is not ported) and
+`scan_layers`. `grad_accum` steers `launch/steps.py::make_train_step`,
+as in the JAX package. `sharding_overrides` feeds the sharding rules
+(`sharding/rules.py`), which resolve the specs the dry run reports;
+nothing of the port shards a tensor by them.
+
+`ShapeConfig` and `SHAPES`, the input shapes of the dry run's cells,
+are copies too.
 """
 from __future__ import annotations
 
@@ -115,6 +120,9 @@ class ModelConfig:
     dtype: str = "bfloat16"
     param_dtype: str = "bfloat16"
     remat: bool = True
+    # per-arch logical->mesh rule overrides (e.g. granite's 40 experts do
+    # not divide a 16-way axis: shard the expert FFN dim instead)
+    sharding_overrides: Optional[Tuple[Tuple[str, Optional[Tuple[str, ...]]], ...]] = None
 
     # ------------------------------------------------------------------
     def __post_init__(self):
@@ -145,6 +153,31 @@ class ModelConfig:
     @property
     def param_torch_dtype(self) -> torch.dtype:
         return torch_dtype(self.param_dtype)
+
+    @property
+    def is_subquadratic(self) -> bool:
+        """True when no layer performs global attention (long_500k eligible)."""
+        full = set(self.pattern + self.tail_pattern)
+        return ATTN not in full and CROSS_ATTN not in full
+
+
+# ---------------------------------------------------------------------------
+# Input shapes (the assigned 4-shape set).
+# ---------------------------------------------------------------------------
+@dataclasses.dataclass(frozen=True)
+class ShapeConfig:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str                       # "train" | "prefill" | "decode"
+
+
+SHAPES = {
+    "train_4k": ShapeConfig("train_4k", 4_096, 256, "train"),
+    "prefill_32k": ShapeConfig("prefill_32k", 32_768, 32, "prefill"),
+    "decode_32k": ShapeConfig("decode_32k", 32_768, 128, "decode"),
+    "long_500k": ShapeConfig("long_500k", 524_288, 1, "decode"),
+}
 
 
 # ---------------------------------------------------------------------------

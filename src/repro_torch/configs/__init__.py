@@ -2,14 +2,15 @@
 
 Each module exposes FULL (the published config) and SMOKE (a reduced
 same-family config that trains on the CPU in the tests). The ten
-architectures of the JAX package's registry, in its order.
+architectures of the JAX package's registry, in its order, and the
+dry run's cells: every (arch, shape) pair after the rule-based skips.
 """
 from __future__ import annotations
 
 import importlib
 from typing import List
 
-from repro_torch.common.config import ModelConfig
+from repro_torch.common.config import SHAPES, ModelConfig
 
 _MODULES = {
     "mamba2-1.3b": "mamba2_1p3b",
@@ -32,3 +33,25 @@ def get_config(arch: str, smoke: bool = False) -> ModelConfig:
         raise KeyError(f"unknown arch {arch!r}; known: {ARCH_IDS}")
     mod = importlib.import_module(f"repro_torch.configs.{_MODULES[arch]}")
     return mod.SMOKE if smoke else mod.FULL
+
+
+def applicable_shapes(arch: str) -> List[str]:
+    """The assigned shape set, minus rule-based skips: long_500k only for
+    sub-quadratic (SSM / hybrid) architectures."""
+    cfg = get_config(arch)
+    out = []
+    for name, sh in SHAPES.items():
+        if name == "long_500k" and not cfg.is_subquadratic:
+            continue
+        out.append(name)
+    return out
+
+
+def all_cells():
+    """Every (arch, shape) dry-run cell after rule-based skips."""
+    return [(a, s) for a in ARCH_IDS for s in applicable_shapes(a)]
+
+
+def skipped_cells():
+    return [(a, s) for a in ARCH_IDS for s in SHAPES
+            if s not in applicable_shapes(a)]

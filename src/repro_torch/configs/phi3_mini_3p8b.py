@@ -8,6 +8,14 @@ FULL = ModelConfig(
     num_layers=32, d_model=3072, num_heads=32, num_kv_heads=32,
     d_ff=8192, vocab_size=32064,
     pattern=(ATTN,), mlp_kind="swiglu", rope_theta=10_000.0,
+    # the JAX package's training layout: pure ZeRO-3/FSDP (batch over all
+    # devices, weights gathered per layer), remat on
+    sharding_overrides=(
+        ("batch", ("pod", "data", "model")),
+        ("embed", ("data", "model")),
+        ("heads", None), ("kv_heads", None), ("mlp", None),
+        ("vocab", None), ("seq", None),
+    ),
 )
 
 SMOKE = ModelConfig(

@@ -7,7 +7,10 @@ Differentiable through `torch.autograd.Function`: the forward is
 `launch.roofline.WorkCounter`) and on a CPU tensor runs the plain
 version in `ref.py`. bf16 goes to `csrc/flash_attention_fwd_sm90.cu`, on
 the tensor cores; fp32 to `csrc/flash_attention_fwd.cu`, on the CUDA
-cores.
+cores. On a meta tensor (the dry run, `launch/dryrun.py`) it runs the
+CUDA branch's argument checks, adds the kernel's work to an active
+`WorkCounter` and returns an empty meta output: nothing launches, so
+`launches` stays as it was.
 The backward recomputes attention with the plain version under autograd,
 as the JAX package's `_fa_bwd` does with its reference; a backward kernel
 is queued in ROADMAP.
@@ -72,15 +75,14 @@ def _entry(stem):
     return fn
 
 
-def flash_attention_fwd(q, k, v, *, causal=True, window=None, softcap=None):
-    """Forward only: q (B,S,N,H), k and v (B,T,N,H) -> (B,S,N,H)."""
-    if q.device.type == "cpu":
-        return flash_attention_plain(q, k, v, causal=causal, window=window,
-                                     softcap=softcap)
+def _check_args(q, k, v, window, softcap):
+    """The kernels' argument checks; returns (B, S, T, N, H)."""
     B, S, N, H = q.shape
     T = k.shape[1]
-    if q.device.type != "cuda" or k.device != q.device or v.device != q.device:
-        raise ValueError("flash_attention: q, k, v must lie on one CUDA device")
+    if (q.device.type not in ("cuda", "meta") or k.device != q.device
+            or v.device != q.device):
+        raise ValueError("flash_attention: q, k, v must lie on one CUDA "
+                         "device (or all on meta)")
     if not (q.dtype == k.dtype == v.dtype) or q.dtype not in (
             torch.float32, torch.bfloat16):
         raise ValueError(f"flash_attention: fp32 or bf16 q, k, v of one "
@@ -95,6 +97,11 @@ def flash_attention_fwd(q, k, v, *, causal=True, window=None, softcap=None):
         raise ValueError(f"flash_attention: window must be >= 1, got {window}")
     if softcap is not None and softcap <= 0:
         raise ValueError(f"flash_attention: softcap must be > 0, got {softcap}")
+    return B, S, T, N, H
+
+
+def _launch(q, k, v, B, S, T, N, H, causal, window, softcap):
+    """Launch the kernel of q's dtype; returns o (B,S,N,H)."""
     if q.dtype == torch.bfloat16:
         # TMA reads the tensors as they lie, or a contiguous copy where
         # their base or strides break its alignment
@@ -116,7 +123,21 @@ def flash_attention_fwd(q, k, v, *, causal=True, window=None, softcap=None):
         0 if window is None else int(window),
         0.0 if softcap is None else float(softcap), _build.stream_ptr(q))
     _build.check(stem, rc)
-    flash_attention_fwd.launches += 1
+    return o
+
+
+def flash_attention_fwd(q, k, v, *, causal=True, window=None, softcap=None):
+    """Forward only: q (B,S,N,H), k and v (B,T,N,H) -> (B,S,N,H)."""
+    if q.device.type == "cpu":
+        return flash_attention_plain(q, k, v, causal=causal, window=window,
+                                     softcap=softcap)
+    B, S, T, N, H = _check_args(q, k, v, window, softcap)
+    if q.device.type == "meta":
+        # the dry run: the output's shape and dtype, nothing launched
+        o = torch.empty((B, S, N, H), dtype=q.dtype, device="meta")
+    else:
+        o = _launch(q, k, v, B, S, T, N, H, causal, window, softcap)
+        flash_attention_fwd.launches += 1
     roofline.add_kernel_work("flash_attention_fwd", lambda: (
         roofline.attention_work(B, S, T, N, H, q.element_size(),
                                 causal=causal, window=window)))

@@ -9,8 +9,10 @@ db = g and dlog_a_t = g_t exp(log_a_t) h_{t-1} in the same pass.
 `rglru_scan_reverse` is the reverse scan alone. On a CUDA tensor each
 wrapper launches its kernel and adds one to its own `launches` count
 (and its work to an active `launch.roofline.WorkCounter`); on
-a CPU tensor it runs the plain version in `ref.py`. There is no other
-path.
+a CPU tensor it runs the plain version in `ref.py`. On a meta tensor
+(the dry run, `launch/dryrun.py`) it runs the same checks, adds the
+kernel's work to an active `WorkCounter` and returns empty meta outputs,
+counting no launch: nothing launches. There is no other path.
 
 The JAX package's Pallas kernel has no gradient; the backward is held to
 `jax.vjp` of its reference scan, which is the gradient the JAX package
@@ -63,8 +65,10 @@ def _lib():
 
 def _check_inputs(*tensors):
     x = tensors[0]
-    if x.device.type != "cuda" or any(t.device != x.device for t in tensors):
-        raise ValueError("rglru_scan: inputs must lie on one CUDA device")
+    if x.device.type not in ("cuda", "meta") or any(
+            t.device != x.device for t in tensors):
+        raise ValueError("rglru_scan: inputs must lie on one CUDA device "
+                         "(or all on meta)")
     if any(t.dtype != torch.float32 for t in tensors):
         raise ValueError(f"rglru_scan: fp32 inputs only, got "
                          f"{[t.dtype for t in tensors]}")
@@ -83,8 +87,11 @@ def _cluster(x, B, S, W, steps):
 
 
 def _launch(log_a, u, reverse):
+    """The scan's output; on meta, an empty one (nothing launches)."""
     B, S, W = _check_inputs(log_a, u)
     out = torch.empty((B, S, W), dtype=torch.float32, device=u.device)
+    if u.device.type == "meta":
+        return out
     rc = _lib().rglru_scan(log_a.data_ptr(), u.data_ptr(), out.data_ptr(),
                            B, S, W, int(reverse),
                            _cluster(u, B, S, W, L_SCAN), *log_a.stride(),
@@ -98,7 +105,8 @@ def rglru_scan_fwd(log_a, b):
     if log_a.device.type == "cpu":
         return rglru_scan_ref(log_a, b)
     h = _launch(log_a, b, reverse=False)
-    rglru_scan_fwd.launches += 1
+    if h.device.type == "cuda":
+        rglru_scan_fwd.launches += 1
     roofline.add_kernel_work("rglru_scan_fwd",
                              lambda: roofline.rglru_work(h.numel()))
     return h
@@ -109,7 +117,8 @@ def rglru_scan_reverse(log_a, g):
     if log_a.device.type == "cpu":
         return rglru_scan_reverse_ref(log_a, g)
     out = _launch(log_a, g, reverse=True)
-    rglru_scan_reverse.launches += 1
+    if out.device.type == "cuda":
+        rglru_scan_reverse.launches += 1
     roofline.add_kernel_work("rglru_scan_reverse",
                              lambda: roofline.rglru_work(out.numel()))
     return out
@@ -123,13 +132,14 @@ def rglru_scan_bwd(log_a, h, gh):
     B, S, W = _check_inputs(log_a, h, gh)
     db = torch.empty((B, S, W), dtype=torch.float32, device=gh.device)
     dlog_a = torch.empty_like(db)
-    rc = _lib().rglru_scan_bwd(
-        log_a.data_ptr(), gh.data_ptr(), h.data_ptr(), db.data_ptr(),
-        dlog_a.data_ptr(), B, S, W, _cluster(gh, B, S, W, L_BWD),
-        *log_a.stride(), *gh.stride(), *h.stride(), *db.stride(),
-        *dlog_a.stride(), _build.stream_ptr(gh))
-    _build.check(_STEM, rc)
-    rglru_scan_bwd.launches += 1
+    if gh.device.type == "cuda":
+        rc = _lib().rglru_scan_bwd(
+            log_a.data_ptr(), gh.data_ptr(), h.data_ptr(), db.data_ptr(),
+            dlog_a.data_ptr(), B, S, W, _cluster(gh, B, S, W, L_BWD),
+            *log_a.stride(), *gh.stride(), *h.stride(), *db.stride(),
+            *dlog_a.stride(), _build.stream_ptr(gh))
+        _build.check(_STEM, rc)
+        rglru_scan_bwd.launches += 1
     roofline.add_kernel_work("rglru_scan_bwd", lambda: roofline.rglru_work(
         db.numel(), backward=True))
     return dlog_a, db

@@ -8,7 +8,10 @@ to its `launches` count, and its work to an active
 version in `ref.py`. `route` picks the kernel by dtype and head dim: bf16 with p a
 multiple of 8 up to 128 goes to `csrc/ssd_fwd_sm90.cu`, on the tensor
 cores (also counted in `sm90_launches`); fp32, and bf16 of any other p,
-to `csrc/ssd_fwd.cu`, on the CUDA cores. The backward recomputes the
+to `csrc/ssd_fwd.cu`, on the CUDA cores. On a meta tensor (the dry run)
+it runs the same checks, adds the routed kernel's work to an active
+`WorkCounter` and returns an empty meta output, counting no launch.
+The backward recomputes the
 scan with the plain version under autograd, which is the gradient the
 JAX package takes (`jax.grad` of `ssd_reference`; its Pallas kernel has
 none). B and C are expanded to heads only inside that recompute, so
@@ -71,8 +74,10 @@ def _entry(stem):
 def _check(xbar, log_a, Bm, Cm, chunk):
     b, s, h, p = xbar.shape
     g, n = Bm.shape[2], Bm.shape[3]
-    if any(t.device != xbar.device for t in (log_a, Bm, Cm)):
-        raise ValueError("ssd: all inputs must lie on one CUDA device")
+    if xbar.device.type not in ("cuda", "meta") or any(
+            t.device != xbar.device for t in (log_a, Bm, Cm)):
+        raise ValueError("ssd: all inputs must lie on one CUDA device (or "
+                         "all on meta)")
     if xbar.dtype not in (torch.float32, torch.bfloat16) or not (
             Bm.dtype == Cm.dtype == xbar.dtype):
         raise ValueError(f"ssd: x, B, C of one dtype, fp32 or bf16; got "
@@ -96,8 +101,6 @@ def ssd_fwd(xbar, log_a, Bm, Cm, *, chunk=256):
     """Forward only: y (b,s,h,p) in xbar's dtype."""
     if xbar.device.type == "cpu":
         return ssd_plain(xbar, log_a, Bm, Cm, chunk=chunk)[0]
-    if xbar.device.type != "cuda":
-        raise ValueError(f"ssd: unsupported device {xbar.device}")
     _check(xbar, log_a, Bm, Cm, chunk)
     b, s, h, p = xbar.shape
     g, n = Bm.shape[2], Bm.shape[3]
@@ -105,6 +108,23 @@ def ssd_fwd(xbar, log_a, Bm, Cm, *, chunk=256):
     # the rows of the chunks the launched kernel runs
     run_chunk = min(chunk, SM90_PIECE if stem == _STEM_SM90 else s)
     y = torch.empty((b, s, h, p), dtype=xbar.dtype, device=xbar.device)
+    if xbar.device.type == "cuda":
+        _launch(stem, xbar, log_a, Bm, Cm, y, chunk)
+        ssd_fwd.launches += 1
+        ssd_fwd.sm90_launches += int(stem == _STEM_SM90)
+    roofline.add_kernel_work("ssd_fwd", lambda: roofline.ssd_work(
+        b, s, h, p, g, n, run_chunk, y.element_size()))
+    return y
+
+
+ssd_fwd.launches = 0
+ssd_fwd.sm90_launches = 0
+
+
+def _launch(stem, xbar, log_a, Bm, Cm, y, chunk):
+    """Launch `stem`'s kernel, writing y."""
+    b, s, h, p = xbar.shape
+    g, n = Bm.shape[2], Bm.shape[3]
     if stem == _STEM_SM90:
         # TMA reads x, B and C as they lie, or a contiguous copy where
         # their base or strides break its alignment; the kernel cuts the
@@ -123,15 +143,6 @@ def ssd_fwd(xbar, log_a, Bm, Cm, *, chunk=256):
     ptrs = (t.data_ptr() for t in (xbar, log_a, Bm, Cm, y))
     rc = _entry(stem)(*ptrs, *args, *y.stride()[:3], _build.stream_ptr(y))
     _build.check(stem, rc)
-    ssd_fwd.launches += 1
-    ssd_fwd.sm90_launches += int(stem == _STEM_SM90)
-    roofline.add_kernel_work("ssd_fwd", lambda: roofline.ssd_work(
-        b, s, h, p, g, n, run_chunk, y.element_size()))
-    return y
-
-
-ssd_fwd.launches = 0
-ssd_fwd.sm90_launches = 0
 
 
 class _SSD(torch.autograd.Function):

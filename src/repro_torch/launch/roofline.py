@@ -1,30 +1,37 @@
-"""Roofline pieces of the port: the step-time estimate that
+"""Roofline analysis of the port: the step-time estimate that
 `fl/training.py::calibrate` holds a measured round against, the work
-counts of the port's hand-written kernels, and `WorkCounter`, which
-counts the FLOPs and bytes of a stretch of PyTorch code, the kernels'
-launches included.
+counts of the port's hand-written kernels, `WorkCounter`, which counts
+the FLOPs and bytes of a stretch of PyTorch code, the kernels' launches
+included, and the dry run's three-term roofline (`analyze`) with the
+model-FLOPs yardstick (`model_flops`).
 
-Counterpart of the JAX package's `launch/roofline.py` as far as
-`calibrate` needs it. The JAX package reads a step's FLOPs and bytes
-from the compiled HLO. PyTorch runs eagerly, so the port counts what
-runs:
+Counterpart of the JAX package's `launch/roofline.py` and of its
+`launch/hlo_analysis.py`, which the port does not copy. The JAX package
+reads a step's FLOPs and bytes from the compiled HLO, weighting each
+`while` body (the scan over layers) by its trip count. PyTorch runs
+eagerly, so the port counts what runs, on the card or on the meta
+device (the dry run, `launch/dryrun.py`), where the Python loop over the
+layers stands in for the scan's trip count:
   FLOPs  `torch.utils.flop_counter.FlopCounterMode` (matrix products);
   bytes  a dispatch mode that sums each aten op's input and output bytes,
          the analogue of XLA's `bytes accessed` (views and allocations
          move nothing and count nothing).
 The kernels launch through `ctypes`, which neither mode sees, so each
 kernel wrapper adds its own work (`add_kernel_work`, with the formulas
-below) where it counts its launch. On a CPU tensor a wrapper runs its
-plain version, whose aten ops the modes count themselves.
+below) where it counts its launch, or, on a meta tensor, where it would
+launch. On a CPU tensor a wrapper runs its plain version, whose aten ops
+the modes count themselves.
 
 The peaks are always the caller's, measured on the device
-(`fl/training.py::_measure_peaks`): this module holds no hardware
-constant.
+(`fl/training.py::_measure_peaks`) or named on the dry run's command
+line: this module holds no hardware constant.
 """
 from __future__ import annotations
 
+import dataclasses
+import math
 from collections import defaultdict
-from typing import Callable, Dict, List, Tuple
+from typing import Callable, Dict, List, Optional, Tuple
 
 import torch
 from torch.utils._python_dispatch import TorchDispatchMode
@@ -215,3 +222,103 @@ def add_kernel_work(name: str,
         k[0] += 1
         k[1] += float(flops)
         k[2] += float(nbytes)
+
+
+# ---------------------------------------------------------------------------
+# The dry run's roofline.
+# ---------------------------------------------------------------------------
+@dataclasses.dataclass
+class CollectiveStats:
+    """Bytes and calls of each collective kind, as the code that runs
+    the collective counts them (`fl/mesh_fl.py`'s int8 ring), where the
+    JAX package parses them out of the compiled HLO."""
+    bytes_by_kind: Dict[str, int]
+    count_by_kind: Dict[str, int]
+
+    @property
+    def total_bytes(self) -> int:
+        return sum(self.bytes_by_kind.values())
+
+
+@dataclasses.dataclass
+class Roofline:
+    flops: float                 # per device
+    bytes_accessed: float        # per device (HBM traffic proxy)
+    collective_bytes: float      # per device
+    compute_s: float
+    memory_s: float
+    collective_s: float
+    dominant: str
+    model_flops: float           # 6ND / 2ND useful work (whole step, global)
+    useful_ratio: float          # model_flops / (flops * chips)
+    peak_fraction: float         # compute_s / max(all terms)
+    collective_by_kind: Optional[Dict[str, float]] = None
+
+    def as_dict(self):
+        return dataclasses.asdict(self)
+
+
+def analyze(counter: WorkCounter, *, n_chips: int, model_flops_global: float,
+            peak_flops: float, hbm_bw: float, link_bw: Optional[float] = None,
+            collective_bytes: Optional[CollectiveStats] = None) -> Roofline:
+    """The three roofline terms of a counted run on one device:
+    `counter`'s FLOPs over `peak_flops`, its bytes over `hbm_bw`, and the
+    collective bytes a device moves over `link_bw` (0 without
+    collectives; a link rate is needed only with them). The peaks are
+    the caller's, measured on the device or taken from a data sheet."""
+    if not (peak_flops > 0 and hbm_bw > 0):
+        raise ValueError(f"analyze: peaks must be positive, got "
+                         f"{peak_flops} FLOP/s, {hbm_bw} B/s")
+    flops, nbytes = counter.flops, counter.bytes_accessed
+    coll = float(collective_bytes.total_bytes) if collective_bytes else 0.0
+    if coll and not (link_bw and link_bw > 0):
+        raise ValueError("analyze: collective bytes need a positive link_bw")
+    compute_s = flops / peak_flops
+    memory_s = nbytes / hbm_bw
+    collective_s = coll / link_bw if coll else 0.0
+    terms = {"compute": compute_s, "memory": memory_s,
+             "collective": collective_s}
+    dominant = max(terms, key=terms.get)
+    total_device_flops = flops * n_chips
+    useful = (model_flops_global / total_device_flops
+              if total_device_flops else 0.0)
+    bound = max(terms.values())
+    return Roofline(
+        flops=flops, bytes_accessed=nbytes, collective_bytes=coll,
+        compute_s=compute_s, memory_s=memory_s, collective_s=collective_s,
+        dominant=dominant, model_flops=model_flops_global,
+        useful_ratio=useful,
+        peak_fraction=(compute_s / bound) if bound > 0 else 0.0,
+        collective_by_kind=({k: float(v) for k, v in
+                             collective_bytes.bytes_by_kind.items() if v}
+                            if collective_bytes else {}))
+
+
+# ---------------------------------------------------------------------------
+# Model-FLOPs (the "useful work" yardstick).
+# ---------------------------------------------------------------------------
+def active_param_count(cfg) -> float:
+    """Params touched per token: MoE expert weights scale by top_k/E."""
+    from repro_torch.models import lm
+    total = 0.0
+    for keys, (shape, _) in lm.param_shapes(cfg):
+        n = float(math.prod(shape))
+        if cfg.moe is not None and any(
+                k in keys for k in ("wi_gate", "wi_up", "wi", "wo")) \
+                and "mlp" in keys:
+            n *= cfg.moe.top_k / cfg.moe.num_experts
+        total += n
+    return total
+
+
+def model_flops(cfg, shape) -> float:
+    """6·N·D train / 2·N·D forward; D = tokens processed by the step."""
+    n = active_param_count(cfg)
+    if shape.kind == "train":
+        tokens = shape.global_batch * shape.seq_len
+        return 6.0 * n * tokens
+    if shape.kind == "prefill":
+        tokens = shape.global_batch * shape.seq_len
+        return 2.0 * n * tokens
+    # decode: one token per sequence
+    return 2.0 * n * shape.global_batch

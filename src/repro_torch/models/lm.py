@@ -16,14 +16,22 @@ attention layers (a ring of the window for local attention), the
 cross-attention layers' `cond_k`/`cond_v`, and the SSM layers' conv and
 recurrent states. `decode_step` updates it in place and returns it.
 
+The abstract trees are meta tensors (shapes and dtypes, no data), the
+counterpart of the JAX package's `ShapeDtypeStruct` trees: the dry run
+(`launch/dryrun.py`) runs the FULL configs' steps on them, and the
+sharding rules resolve the logical-axes trees beside them.
+
 Public API:
   param_schema / param_shapes / init_params
+  abstract_params / logical_axes / param_count
   forward(params, cfg, tokens, cond=None)      -> logits, aux
   loss_fn(params, cfg, batch)                  -> scalar loss
-  cache_shapes / init_cache
+  cache_shapes / init_cache / abstract_cache / cache_logical_axes
   decode_step(params, cfg, tokens, pos, cache) -> logits, cache
 """
 from __future__ import annotations
+
+import math
 
 import torch
 from torch.utils.checkpoint import checkpoint
@@ -88,6 +96,22 @@ def init_params(cfg, seed: int = 0, device: str = "cuda"):
     gen = torch.Generator().manual_seed(seed)
     return L.materialize_tree(param_schema(cfg), gen, cfg.param_torch_dtype,
                               device)
+
+
+def abstract_params(cfg):
+    """The parameter tree as meta tensors: shapes and dtypes, no data."""
+    return unflatten({k: torch.empty(shape, dtype=dt, device="meta")
+                      for k, (shape, dt) in param_shapes(cfg)})
+
+
+def logical_axes(cfg):
+    """The parameter tree's logical axis names, a tuple a leaf."""
+    return unflatten({k: s.axes
+                      for k, s in flatten_with_paths(param_schema(cfg))})
+
+
+def param_count(cfg) -> int:
+    return sum(math.prod(shape) for _, (shape, _) in param_shapes(cfg))
 
 
 # ---------------------------------------------------------------------------
@@ -177,48 +201,74 @@ def loss_fn(params, cfg, batch, aux_weight: float = 0.01):
 # Decode path.
 # ---------------------------------------------------------------------------
 def _sublayer_cache_shapes(cfg, kind, batch, max_len, dtype):
+    """name -> (shape, dtype, logical axes) of one sublayer's cache."""
     h = cfg.resolved_head_dim
     nk = cfg.num_kv_heads
     if kind == C.ATTN:
-        return {"k": ((batch, max_len, nk, h), dtype),
-                "v": ((batch, max_len, nk, h), dtype)}
+        ax = ("batch", "cache_len", "kv_heads", "head_dim")
+        return {"k": ((batch, max_len, nk, h), dtype, ax),
+                "v": ((batch, max_len, nk, h), dtype, ax)}
     if kind == C.LOCAL_ATTN:
         wl = min(cfg.window_size, max_len)
-        return {"k": ((batch, wl, nk, h), dtype),
-                "v": ((batch, wl, nk, h), dtype)}
+        ax = ("batch", None, "kv_heads", "head_dim")
+        return {"k": ((batch, wl, nk, h), dtype, ax),
+                "v": ((batch, wl, nk, h), dtype, ax)}
     if kind == C.CROSS_ATTN:
         t = cfg.n_cond_tokens
-        return {"cond_k": ((batch, t, nk, h), dtype),
-                "cond_v": ((batch, t, nk, h), dtype)}
+        ax = ("batch", "cond", "kv_heads", "head_dim")
+        return {"cond_k": ((batch, t, nk, h), dtype, ax),
+                "cond_v": ((batch, t, nk, h), dtype, ax)}
     if kind == C.MAMBA2:
         s = cfg.ssm
         d_in, nh, conv_dim = S.mamba2_dims(cfg)
-        return {"conv": ((batch, s.conv_width - 1, conv_dim), dtype),
-                "ssm": ((batch, nh, s.head_dim, s.d_state), torch.float32)}
+        return {"conv": ((batch, s.conv_width - 1, conv_dim), dtype,
+                         ("batch", None, "ssm_inner")),
+                "ssm": ((batch, nh, s.head_dim, s.d_state), torch.float32,
+                        ("batch", "ssm_heads", None, "ssm_state"))}
     if kind == C.RGLRU:
         w = cfg.rglru.lru_width or cfg.d_model
         k = cfg.rglru.conv_width
-        return {"conv": ((batch, k - 1, w), dtype),
-                "h": ((batch, w), torch.float32)}
+        return {"conv": ((batch, k - 1, w), dtype,
+                         ("batch", None, "lru_width")),
+                "h": ((batch, w), torch.float32, ("batch", "lru_width"))}
     raise ValueError(kind)
+
+
+def _cache_leaves(cfg, batch, max_len, dtype):
+    """(key, (shape, dtype, logical axes)) for every cache leaf, in
+    sorted-key order; stacked leaves gain the leading `layers` dim."""
+    parts = ([("blocks", cfg.pattern, True)] if cfg.n_super > 0 else []) \
+        + [("tail", cfg.tail_pattern, False)]
+    flat = {}
+    for part, pattern, stack in parts:
+        for i, kind in enumerate(pattern):
+            for name, (shape, dt, ax) in _sublayer_cache_shapes(
+                    cfg, kind, batch, max_len, dtype).items():
+                if stack:
+                    shape, ax = (cfg.n_super,) + shape, ("layers",) + ax
+                flat[f"{part}/{i:02d}_{kind}/{name}"] = (shape, dt, ax)
+    return sorted(flat.items())
 
 
 def cache_shapes(cfg, batch, max_len, dtype=None):
     """(key, (shape, torch dtype)) for every cache leaf, in sorted-key
     order; `dtype` (default the activation dtype) is that of every leaf
     but the SSM layers' fp32 recurrent states."""
-    dtype = dtype or cfg.activation_dtype
-    parts = ([("blocks", cfg.pattern, True)] if cfg.n_super > 0 else []) \
-        + [("tail", cfg.tail_pattern, False)]
-    flat = {}
-    for part, pattern, stack in parts:
-        for i, kind in enumerate(pattern):
-            for name, (shape, dt) in _sublayer_cache_shapes(
-                    cfg, kind, batch, max_len, dtype).items():
-                if stack:
-                    shape = (cfg.n_super,) + shape
-                flat[f"{part}/{i:02d}_{kind}/{name}"] = (shape, dt)
-    return sorted(flat.items())
+    return [(k, (shape, dt)) for k, (shape, dt, _) in _cache_leaves(
+        cfg, batch, max_len, dtype or cfg.activation_dtype)]
+
+
+def abstract_cache(cfg, batch, max_len, dtype=None):
+    """The cache tree as meta tensors."""
+    return unflatten({k: torch.empty(shape, dtype=dt, device="meta")
+                      for k, (shape, dt) in cache_shapes(cfg, batch, max_len,
+                                                         dtype)})
+
+
+def cache_logical_axes(cfg, batch=0, max_len=0):
+    """The cache tree's logical axis names, a tuple a leaf."""
+    return unflatten({k: ax for k, (_, _, ax) in _cache_leaves(
+        cfg, 1, 2, torch.float32)})
 
 
 def init_cache(cfg, batch, max_len, dtype=None, device: str = "cuda"):

@@ -139,8 +139,7 @@ class TestSchema:
         SMOKE config equal field for field, but the fields the port
         leaves out."""
         assert configs.ARCH_IDS == jconfigs.ARCH_IDS
-        left_out = {"attn_chunk", "sharding_overrides", "use_pallas",
-                    "scan_layers"}
+        left_out = {"attn_chunk", "use_pallas", "scan_layers"}
         for arch in configs.ARCH_IDS:
             got = configs.get_config(arch, smoke=smoke)
             want = jconfigs.get_config(arch, smoke=smoke)

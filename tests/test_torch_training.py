@@ -308,7 +308,10 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     assert len(files) > 14
     scanned = {f.relative_to(REPO).as_posix() for f in files}
     assert {f"src/repro_torch/launch/{m}.py"
-            for m in ("steps", "train", "serve")} <= scanned
+            for m in ("steps", "train", "serve", "mesh", "dryrun")} <= scanned
+    assert {"src/repro_torch/sharding/rules.py", "src/repro_torch/fl/mesh_fl.py",
+            "src/repro_torch/fl/mesh_ranks.py",
+            "src/repro_torch/configs/shapes.py"} <= scanned
     for f in files:
         bad = _imported_roots(f) & {"jax", "jaxlib", "flax", "repro"}
         assert not bad, f"{f.relative_to(REPO)} imports {sorted(bad)}"

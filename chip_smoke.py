@@ -28,7 +28,20 @@ the real-training Table I row
 (`repro_torch.benchmarks.table1.run_real_rows`, MNIST's market):
 `calibrate` anchors the simulated epochs to the measured round, both
 arms run 2 calibrated rounds, and `assert_comm_win` must pass; its
-launches are counted the same way. Then it checks a SMOKE-size run of
+launches are counted the same way. Then the same row's int8 arm at
+phi3's main path under the learned forecast policy
+(`repro_torch.forecast.register_learned_policy`; `phase_forecast_report`,
+`[forecast]` and `[report]` lines), its event log recorded under
+`build/`: its launches must be exactly those of its calibration and its
+2 rounds, the port's report (`repro_torch.cloud.report`) must reconcile
+the log to 1e-9 and sum it to the run's dollars, the log must hold
+`ForecastUpdated` records, and its dollars (to 1e-9) and log (byte for
+byte) must equal the same run's on the CPU over a payload-only stub with
+the card's calibrated profiles; the report's `validate` screens the row
+from its counted work at the card's measured peaks, a sweep of 8 cells
+(`repro_torch.sweep`) over a pool of spawned workers must equal its
+serial run within `SWEEP_LIMIT_S`, and the port's forecast_quality and
+forecast_prewarm benchmarks must pass their own asserts. Then it checks a SMOKE-size run of
 each of the registry's ten models on the card against the same run on
 the CPU (nine through one FL round of each arm; llama-3.2-vision-90b,
 whose cross-attention layers need a `cond` batch the hooks do not draw,
@@ -109,6 +122,7 @@ Before them comes one `{"kernels": [...]}` line.
 import contextlib
 import dataclasses
 import gc
+import io
 import json
 import math
 import os
@@ -895,6 +909,200 @@ def phase_real(arch):
         T1.assert_comm_win(recs[0], recs[1])
     except SystemExit as e:
         _fail(f"{cfg.name} real row: {e}")
+
+
+# The learned-forecast row's sweep: a grid of 2 policies x 2 markets x 2
+# seeds, fanned over FORECAST_POOL spawned workers, which must finish in
+# SWEEP_LIMIT_S seconds
+SWEEP_GRID = dict(policies=("spot", "fedcostaware"),
+                  markets=("baseline", "capacity_crunch"), seeds=range(2))
+FORECAST_POOL, SWEEP_LIMIT_S = 4, 180
+
+
+def _learned_stub_run(cfg, cal, row):
+    """The learned-forecast row's run on the CPU, as `run_real` builds
+    it, with the card's calibrated client profiles and a payload-only
+    stub of `cfg`'s parameter tree: its RunResult and event log."""
+    from repro_torch.benchmarks import table1 as T1
+    from repro_torch.common.config import (CloudConfig, ClientProfile,
+                                           FLRunConfig)
+    from repro_torch.fl import training as T
+    from repro_torch.fl.runner import FLCloudRunner
+
+    profiles = tuple(
+        ClientProfile(name, mean_epoch_s=row.epoch_s[i % len(row.epoch_s)],
+                      cold_multiplier=1.12, jitter=0.0)
+        for i, name in enumerate(CLIENTS))
+    profiles = tuple(T.calibrated_profiles(profiles, cal,
+                                           time_scale=T1._TIME_SCALE))
+    run_cfg = FLRunConfig(dataset=row.dataset, clients=profiles,
+                          n_epochs=REAL_ROUNDS, policy="learned_forecast",
+                          seed=0, quantize_updates=True)
+    cloud = CloudConfig(spin_up_mean_s=row.spin_up_s, spin_up_sigma=0.0,
+                        market=T1.comm_market(row))
+    runner = FLCloudRunner(run_cfg, cloud_cfg=cloud,
+                           hooks=_payload_stub(cfg), record=True)
+    return runner.run(), runner.recorder.dumps()
+
+
+def _forecast_validate(cal, row, res):
+    """The report's pre-launch screen of the row from its counted work:
+    one round's FLOPs and bytes at the card's measured peaks, scaled as
+    the row's epochs are, against a budget of what the row billed."""
+    from repro_torch.benchmarks import table1 as T1
+    from repro_torch.cloud import report
+
+    argv = ["validate", "--budget", repr(res.total_cost),
+            "--epochs", str(REAL_ROUNDS), "--clients", str(len(CLIENTS)),
+            "--roofline-flops", repr(cal.flops),
+            "--roofline-bytes", repr(cal.bytes_accessed),
+            "--peak-flops", repr(cal.peak_flops), "--hbm-bw", repr(cal.mem_bw),
+            "--steps-per-epoch", "1", "--time-scale", repr(T1._TIME_SCALE),
+            "--od-rate", repr(row.od_rate), "--spot-rate", repr(row.spot_rate),
+            "--spin-up-s", repr(row.spin_up_s)]
+    out, err = io.StringIO(), io.StringIO()
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+        rc = report.main(argv)
+    _check(rc in (0, 1) and not err.getvalue()
+           and "estimated $" in out.getvalue(),
+           f"report validate on the row's counts: exit {rc}, "
+           f"{out.getvalue()!r} {err.getvalue()!r}")
+    for line in out.getvalue().splitlines():
+        print(f"[report] validate (exit {rc}): {line}")
+
+
+def _forecast_sweep():
+    """The sweep's grid serial, then over a spawned pool with CUDA up in
+    this process: the two result lists must be equal, and the pool must
+    finish in `SWEEP_LIMIT_S` (an alarm ends a hung pool, whose context
+    manager then terminates its workers)."""
+    import signal
+    from repro_torch import sweep
+
+    specs = sweep.build_grid(**SWEEP_GRID)
+    t0 = time.perf_counter()
+    serial = sweep.run_sweep(specs, parallel=False)
+    t_serial = time.perf_counter() - t0
+
+    def _alarm(signum, frame):
+        raise TimeoutError(f"the sweep's pool ran past {SWEEP_LIMIT_S} s")
+
+    old = signal.signal(signal.SIGALRM, _alarm)
+    signal.alarm(SWEEP_LIMIT_S)
+    t0 = time.perf_counter()
+    try:
+        par = sweep.run_sweep(specs, parallel=True, processes=FORECAST_POOL)
+    except TimeoutError as e:
+        _fail(str(e))
+    finally:
+        signal.alarm(0)
+        signal.signal(signal.SIGALRM, old)
+    t_par = time.perf_counter() - t0
+    _check(par == serial, "the sweep's spawned pool and its serial run "
+           "give different results")
+    rep = sweep.build_report(specs, serial)
+    print(f"[forecast] sweep of {len(specs)} cells (2 policies x 2 markets x "
+          f"2 seeds): serial {t_serial:.2f} s, spawned pool of "
+          f"{FORECAST_POOL} {t_par:.2f} s, results equal")
+    for line in sweep.ranking_table(rep).splitlines():
+        print(f"[forecast] {line}")
+
+
+def _forecast_benchmarks():
+    """The port's two forecast benchmarks, each with its own asserts;
+    their CSV goes to `[forecast]` lines."""
+    from repro_torch.benchmarks import forecast_prewarm, forecast_quality
+    for bench in (forecast_quality, forecast_prewarm):
+        out = io.StringIO()
+        try:
+            with contextlib.redirect_stdout(out):
+                bench.main([])
+        except AssertionError as e:
+            _fail(f"{bench.__name__}: {e}")
+        for line in out.getvalue().splitlines():
+            print(f"[forecast] {bench.__name__.rsplit('.', 1)[-1]}: {line}")
+
+
+def phase_forecast_report():
+    """The real-training Table I row under the learned forecast policy
+    at phi3-mini-3.8b's main path, int8 arm, its event log checked by the
+    port's report; then the report's budget screen of the row, a sweep
+    over a spawned pool and the two forecast benchmarks. Returns the
+    row's launches."""
+    from repro_torch.benchmarks import table1 as T1
+    from repro_torch.cloud.report import (RECONCILE_TOL, reconcile_path,
+                                          render_summary, summarize_path)
+    from repro_torch.forecast import register_learned_policy
+    from repro_torch.models import lm
+
+    t0 = time.perf_counter()
+    arch = "phi3-mini-3.8b"
+    cfg = T1.main_path(arch)[0]
+    row = next(r for r in T1.ROWS if r.dataset == REAL_ROW)
+    pol = register_learned_policy()
+    log = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                       "learned_forecast.events.jsonl")
+    gc.collect()
+    counters = _reset_counters()
+    res, hooks, cal = T1.run_real(row, policy=pol.name, rounds=REAL_ROUNDS,
+                                  n_clients=len(CLIENTS), quantize=True,
+                                  record_to=log, model=arch, device="cuda")
+    torch.cuda.synchronize()
+    launches = {name: fn.launches for name, fn in counters.items()}
+    final_loss = hooks.final_loss()
+    del hooks
+    gc.collect()
+    _check([sorted(r) for r in res.per_round_participants]
+           == [sorted(CLIENTS)] * REAL_ROUNDS,
+           f"learned row: participants {res.per_round_participants}")
+    want = _expected_launches(
+        cfg, len(lm.param_shapes(cfg)),
+        train_rounds=T1.CAL_WARMUP + T1.CAL_ITERS + 1 + REAL_ROUNDS,
+        codec_updates=REAL_ROUNDS * len(CLIENTS))
+    print(f"[forecast] {cfg.name} learned row: launches {launches}")
+    _check(launches == want, f"learned row: launched {launches}, want {want}")
+    _check(math.isfinite(final_loss) and res.comm_cost > 0,
+           f"learned row: final loss {final_loss}, egress ${res.comm_cost}")
+
+    with open(log) as f:
+        text = f.read()
+    n_forecasts = text.count('"type": "ForecastUpdated"')
+    rec = reconcile_path(log)
+    summary = summarize_path(log)
+    _check(rec.ok and abs(rec.delta) <= RECONCILE_TOL,
+           f"learned row: reconcile failed: {rec.first_divergence}")
+    _check(abs(summary["totals"]["total"] - res.total_cost) <= 1e-9,
+           f"learned row: the report sums ${summary['totals']['total']!r}, "
+           f"the run billed ${res.total_cost!r}")
+    _check(n_forecasts > 0, "learned row: no ForecastUpdated record")
+    print(f"[forecast] {cfg.name} learned row: calibrated epoch "
+          f"{cal.mean_epoch_s(T1._TIME_SCALE)!r} s (measured round "
+          f"{cal.measured_round_s!r} s x{T1._TIME_SCALE:g}); {REAL_ROUNDS} "
+          f"rounds cost ${res.total_cost!r} (egress ${res.comm_cost!r}, "
+          f"checkpoint ${res.checkpoint_cost!r}), makespan "
+          f"{res.makespan_s!r} s, final loss {final_loss!r}; "
+          f"{n_forecasts} ForecastUpdated records; reconciled, delta "
+          f"{rec.delta!r} (tolerance {RECONCILE_TOL:g})")
+    for line in render_summary(summary).splitlines():
+        print(f"[report] {line}")
+
+    want_res, want_log = _learned_stub_run(cfg, cal, row)
+    _check(abs(res.total_cost - want_res.total_cost) <= 1e-9
+           and abs(res.comm_cost - want_res.comm_cost) <= 1e-9,
+           f"learned row: card ${res.total_cost!r}, CPU stub "
+           f"${want_res.total_cost!r}")
+    _check(text == want_log, "learned row: the card's event log differs "
+           "from the CPU stub's")
+    print(f"[forecast] {cfg.name} learned row: equal to the CPU runner's "
+          f"with a payload-only stub and the card's calibrated profiles "
+          f"(to 1e-9), event log of {len(text.encode())} bytes equal byte "
+          f"for byte")
+
+    _forecast_validate(cal, row, res)
+    _forecast_sweep()
+    _forecast_benchmarks()
+    print(f"[times] phase_forecast_report: {time.perf_counter() - t0:.1f} s")
+    return launches
 
 
 # Card-against-CPU bar of one SMOKE round, per leaf: a share of the
@@ -2194,22 +2402,25 @@ def _time_flash_fp32_h8(fa, gen):
           f"bound {bound:.6f} ms ({by}), fp32 SDPA {lib:.4f} ms")
 
 
-def phase_times(gen, path_launches, mesh_launches, errs, deltas):
+def phase_times(gen, path_launches, mesh_launches, forecast_launches, errs,
+                deltas):
     """The kernels line: each kernel at its main path's shape. Launches
     are those of the paths that run it at that shape (phi3's flash: its
-    main path and its mesh FL round, `mesh_launches`), or of all of
-    them."""
+    main path, its mesh FL round, `mesh_launches`, and its learned-forecast
+    row, `forecast_launches`), or of all of them."""
     from repro_torch.kernels.flash_attention import ops as fa
     from repro_torch.kernels.grad_quant import ops as gq
     from repro_torch.kernels.rglru import ops as rg
     from repro_torch.kernels.ssd import ops as sd
     from repro_torch.launch import roofline as R
 
-    launches = _total_launches({**path_launches, "mesh FL": mesh_launches})
+    launches = _total_launches({**path_launches, "mesh FL": mesh_launches,
+                                "learned forecast": forecast_launches})
     rows = [_flash_row(fa, gen, "flash_attention_fwd", MAIN_B, MAIN_S,
                        MAIN_N, MAIN_H, None,
                        path_launches["phi3-mini-3.8b"]["flash_attention_fwd"]
-                       + mesh_launches["flash_attention_fwd"],
+                       + mesh_launches["flash_attention_fwd"]
+                       + forecast_launches["flash_attention_fwd"],
                        errs["flash_attention_fwd"]),
             _flash_row(fa, gen, FLASH_RG_ROW, *FLASH_RG,
                        path_launches["recurrentgemma-2b"]
@@ -2343,13 +2554,15 @@ def main():
           f"{time.perf_counter() - t_phase:.1f} s")
     for arch in REAL_PATHS:
         phase_real(arch)
+    forecast_launches = phase_forecast_report()
     from repro_torch import configs
     for arch in configs.ARCH_IDS:
         if arch != VLM:
             phase_small_reference(arch)
     phase_vlm_reference()
     phase_paper_path()
-    rows = phase_times(gen, path_launches, mesh_launches, errs, deltas)
+    rows = phase_times(gen, path_launches, mesh_launches, forecast_launches,
+                       errs, deltas)
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",

@@ -4,6 +4,7 @@ On-demand), and the real-training row, where `TorchTrainerHooks` train
 an LM on the card and the measured round anchors the simulated epochs.
 
     python -m repro_torch.benchmarks.table1 [--row MNIST] [--record-dir DIR]
+        [--report] [--price-trace DIR [--providers aws,gcp]]
     python -m repro_torch.benchmarks.table1 --real-training \\
         [--model phi3-mini-3.8b] [--layers N] [--assert-comm-win]
     python -m repro_torch.benchmarks.table1 --real-training --smoke \\
@@ -81,6 +82,17 @@ ROWS = [
 POLICIES = ("fedcostaware", "fedcostaware_async", "spot", "on_demand")
 
 
+def trace_market(trace_dir: Union[str, Path], providers: Tuple[str, ...],
+                 od_rate: float) -> MarketConfig:
+    """Trace-driven multi-provider market: one `<provider>.csv` spot
+    history (AWS spot-price-history format) per provider under
+    `trace_dir`."""
+    return MarketConfig(providers=tuple(
+        ProviderConfig(name=p, on_demand_rate=od_rate,
+                       price_trace=str(Path(trace_dir) / f"{p}.csv"))
+        for p in providers))
+
+
 def run_row(row: Table1Row, policy: str, seed: int = 0,
             record_to: Optional[Union[str, Path]] = None,
             market: Optional[MarketConfig] = None,
@@ -109,17 +121,22 @@ def _trace_path(record_dir: Union[str, Path], dataset: str,
 
 
 def run(record_dir: Optional[Union[str, Path]] = None,
-        only_dataset: Optional[str] = None) -> List[dict]:
+        only_dataset: Optional[str] = None,
+        price_trace: Optional[Union[str, Path]] = None,
+        providers: Tuple[str, ...] = ("aws",)) -> List[dict]:
     out = []
     for row in ROWS:
         if only_dataset is not None and row.dataset != only_dataset:
             continue
+        market = (trace_market(price_trace, providers, row.od_rate)
+                  if price_trace is not None else None)
         od_cost = None
         for policy in POLICIES:
             rec_path = (_trace_path(record_dir, row.dataset, policy)
                         if record_dir is not None else None)
-            res = run_row(row, policy, record_to=rec_path)
-            target = row.target.get(policy)    # async has no paper column
+            res = run_row(row, policy, record_to=rec_path, market=market)
+            target = (row.target.get(policy)    # async has no paper column
+                      if price_trace is None else None)
             rec = {
                 "dataset": row.dataset, "n_clients": row.n_clients,
                 "n_epochs": row.n_epochs, "algorithm": policy,
@@ -317,6 +334,13 @@ def main(argv=None):
     ap.add_argument("--row", metavar="DATASET", default=None,
                     choices=[r.dataset for r in ROWS],
                     help="run a single Table-1 row (e.g. MNIST)")
+    ap.add_argument("--price-trace", metavar="DIR", default=None,
+                    help="price every run off real spot-history traces "
+                         "(<provider>.csv per provider under DIR) "
+                         "instead of the synthetic market")
+    ap.add_argument("--providers", metavar="NAMES", default="aws",
+                    help="comma-separated provider list for "
+                         "--price-trace (default: aws)")
     ap.add_argument("--real-training", action="store_true",
                     help="replace simulated epochs with real LM steps of "
                          "TorchTrainerHooks and bill update egress off "
@@ -346,7 +370,15 @@ def main(argv=None):
     ap.add_argument("--device", default="cuda",
                     help="with --real-training: where the hooks train "
                          "(default cuda; cpu runs the plain versions)")
+    ap.add_argument("--report", action="store_true",
+                    help="after the runs, print the per-client/provider"
+                         "/zone spend breakdown of every recorded "
+                         "trace (requires --record-dir; the "
+                         "`python -m repro_torch.cloud.report` summary)")
     args = ap.parse_args(argv)
+    if args.report and args.record_dir is None:
+        ap.error("--report needs --record-dir (it summarizes the "
+                 "recorded traces)")
 
     def fmt(v):
         return "" if v is None else v
@@ -372,12 +404,21 @@ def main(argv=None):
 
     print("dataset,algorithm,total_cost,checkpoint_cost,comm_cost,"
           "paper_cost,rel_err,savings_vs_od_pct,paper_savings_pct")
-    for r in run(record_dir=args.record_dir, only_dataset=args.row):
+    providers = tuple(p.strip() for p in args.providers.split(",")
+                      if p.strip())
+    for r in run(record_dir=args.record_dir, only_dataset=args.row,
+                 price_trace=args.price_trace, providers=providers):
         print(f"{r['dataset']},{r['algorithm']},{r['total_cost']},"
               f"{r['checkpoint_cost']},{r['comm_cost']},"
               f"{fmt(r['paper_cost'])},{fmt(r['rel_err'])},"
               f"{fmt(r.get('savings_vs_od_pct'))},"
               f"{fmt(r.get('paper_savings_pct'))}")
+    if args.report:
+        from repro_torch.cloud.report import render_summary, summarize_path
+        traces = sorted(Path(args.record_dir).glob("*.events.jsonl"))
+        print()
+        print("\n\n".join(render_summary(summarize_path(p))
+                          for p in traces))
 
 
 if __name__ == "__main__":

@@ -705,3 +705,43 @@ def test_granite_smoke_round_on_the_card_matches_the_cpu(gen, quantize):
         ulp = torch.finfo(cpu[k].dtype).eps * cpu[k].abs().max().item()
         assert update <= ulp or not torch.equal(gpu[k], init[k]), k
         assert (gpu[k] - cpu[k]).abs().max().item() <= 2e-2 * update + 2 * ulp, k
+
+
+def test_learned_forecast_row_on_the_card_reconciles(gen, tmp_path):
+    """The real-training Table I row under the learned forecast policy,
+    int8 arm, at phi3 SMOKE size on the card (`chip_smoke.py` runs it at
+    the main path): the kernels launch exactly as its rounds train, it
+    polls during training (`ForecastUpdated` records), and the port's
+    report reconciles its log and sums it to the run's dollars."""
+    from repro_torch.benchmarks import table1 as T1
+    from repro_torch.cloud.report import (RECONCILE_TOL, reconcile_path,
+                                          summarize_path)
+    from repro_torch.forecast import register_learned_policy
+    from repro_torch.models import lm
+
+    pol = register_learned_policy()
+    row = next(r for r in T1.ROWS if r.dataset == "MNIST")
+    cfg = T1.main_path("phi3-mini-3.8b", smoke=True)[0]
+    log = tmp_path / "learned.events.jsonl"
+    before = (fa.flash_attention_fwd.launches, gq.quantize.launches,
+              gq.dequantize.launches)
+    res, hooks, cal = T1.run_real(row, policy=pol.name, rounds=2,
+                                  n_clients=2, quantize=True, record_to=log,
+                                  smoke=True, device="cuda")
+    torch.cuda.synchronize()
+    # calibration: warm-up and timed rounds, one counted; then the run's
+    # 2 rounds; each round trains 2 clients x LOCAL_STEPS steps through
+    # every attention layer, and codes each participant delta's leaves
+    rounds = T1.CAL_WARMUP + T1.CAL_ITERS + 1 + 2
+    steps = rounds * 2 * T1.LOCAL_STEPS
+    codec = 2 * 2 * len(lm.param_shapes(cfg))
+    assert [sorted(p) for p in res.per_round_participants] == \
+        [["client_0", "client_1"]] * 2
+    assert (fa.flash_attention_fwd.launches - before[0],
+            gq.quantize.launches - before[1],
+            gq.dequantize.launches - before[2]) == \
+        (steps * cfg.num_layers, codec, codec)
+    rec = reconcile_path(log)
+    assert rec.ok and abs(rec.delta) <= RECONCILE_TOL, rec.first_divergence
+    assert abs(summarize_path(log)["totals"]["total"] - res.total_cost) <= 1e-9
+    assert log.read_text().count('"type": "ForecastUpdated"') > 0

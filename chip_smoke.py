@@ -112,6 +112,25 @@ of efficientnet (Fed-ISIC2019). Each run's dollars (to 1e-9) and trace
 (`PAPER_PARITY`); each model's local epoch is timed on the host clock,
 with CUDA events and under `torch.profiler`.
 
+After the learned-forecast row, the port's benchmarks on the card's
+machine (`phase_benchmarks`, `[bench]` lines), where no kernel may
+launch: `repro_torch.benchmarks.fig5_costs` and `fig4_timeline` render
+the row's event log, which the card recorded; fig5's last round must
+hold each client's dollars and its total the run's (4 decimals and
+1e-9), and each client's fig4 states must tile one timeline that ends
+with the last round, before the makespan by less than one forecast
+poll. `roofline_report` must carry the FULL phi3 train_4k dry-run
+record that `phase_mesh_fl` made at the card's measured peaks and wrote
+to the port's dry-run path (`build/dryrun_torch.json`). The section
+driver's runs (`repro_torch.benchmarks.expected.RUNS`: `run` over
+Table I, Fig. 4, Fig. 5 and the preemption sweep, the preemption
+realism, multi-cloud, accounting and scaling benchmarks, the scaling
+one writing `build/BENCH_scaling_torch.json`, and the preemption
+example) run on the host, each equal to the JAX package's output
+committed under `tests/torch_expected/benchmarks/` with wall seconds,
+RSS and speedups masked; the scaling rows' and the accounting bench's
+wall seconds are printed as host timings.
+
 Any failure exits non-zero. Without a CUDA device, or outside a
 checkout, it exits non-zero before printing any result. The last two
 lines of standard output are the card's name and power limit as
@@ -1028,7 +1047,7 @@ def phase_forecast_report():
     at phi3-mini-3.8b's main path, int8 arm, its event log checked by the
     port's report; then the report's budget screen of the row, a sweep
     over a spawned pool and the two forecast benchmarks. Returns the
-    row's launches."""
+    row's launches, its RunResult and the path of its event log."""
     from repro_torch.benchmarks import table1 as T1
     from repro_torch.cloud.report import (RECONCILE_TOL, reconcile_path,
                                           render_summary, summarize_path)
@@ -1102,7 +1121,139 @@ def phase_forecast_report():
     _forecast_sweep()
     _forecast_benchmarks()
     print(f"[times] phase_forecast_report: {time.perf_counter() - t0:.1f} s")
-    return launches
+    return launches, res, log
+
+
+def _stdout(fn, *args):
+    """What `fn(*args)` prints."""
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        fn(*args)
+    return out.getvalue()
+
+
+def _bench_renders(res, log):
+    """The port's fig5 and fig4 over the learned row's event log, which
+    the card recorded: fig5's last round holds each client's dollars and
+    its total the run's, at its printed precision and to 1e-9; each
+    client's fig4 states tile its timeline, which ends with the run's
+    last round, before the makespan by less than one forecast poll (the
+    simulator drains the poll armed before the run ended)."""
+    from repro_torch.benchmarks import fig4_timeline as F4
+    from repro_torch.benchmarks import fig5_costs as F5
+    from repro_torch.forecast.strategy import LearnedForecastSpec
+
+    text5 = _stdout(F5.main, ["--replay", log])
+    rounds, clients, table, _, _ = F5.run(replay=log)
+    final = {c: table[c][rounds[-1]] for c in clients}
+    _check(sorted(final) == sorted(res.per_client_cost) and all(
+        f"{final[c]:.4f}" == f"{res.per_client_cost[c]:.4f}"
+        and abs(final[c] - res.per_client_cost[c]) <= 1e-9 for c in final),
+           f"fig5's last round {final}, the run's {res.per_client_cost}")
+    total = f"# total = ${res.total_cost:.4f}"
+    _check(total in text5.splitlines()
+           and abs(sum(final.values()) - res.total_cost) <= 1e-9,
+           f"fig5 prints {text5.splitlines()[-1]!r}, the run billed "
+           f"${res.total_cost!r}")
+    print(f"[bench] fig5 over the card's log: the last round's dollars "
+          f"equal the run's per_client_cost and its total the run's "
+          f"${res.total_cost!r} (egress ${res.comm_cost!r} included: each "
+          f"client's cost holds its own), to 4 decimals and to 1e-9")
+    for line in text5.splitlines():
+        print(f"[bench] fig5: {line}")
+
+    text4 = _stdout(F4.main, ["--replay", log])
+    _, by_client, totals, _ = F4.run(replay=log)
+    ends = {}
+    for c, segs in by_client.items():
+        tiled = segs[0].t0 == 0.0 and all(
+            a.t1 == b.t0 for a, b in zip(segs, segs[1:]))
+        span = sum(v for (cc, _), v in totals.items() if cc == c)
+        _check(tiled and abs(span - segs[-1].t1) <= 1e-6,
+               f"fig4: {c}'s states sum to {span} s over a timeline to "
+               f"{segs[-1].t1} s (tiled: {tiled})")
+        ends[c] = segs[-1].t1
+    end = max(ends.values())
+    poll = LearnedForecastSpec().poll_s
+    _check(sorted(ends) == sorted(res.per_client_cost)
+           and all(abs(e - end) <= 1e-6 for e in ends.values())
+           and 0.0 <= res.makespan_s - end < poll,
+           f"fig4: timelines end at {ends}, makespan {res.makespan_s} s")
+    print(f"[bench] fig4 over the card's log: each client's states sum to "
+          f"its timeline, {end!r} s, the end of the last round; makespan "
+          f"{res.makespan_s!r} s (the simulator drains the forecast poll "
+          f"armed before the end, every {poll:g} s)")
+    for line in text4.splitlines():
+        print(f"[bench] fig4: {line}")
+
+
+def _bench_roofline(rec):
+    """The port's roofline report over the port's dry-run path, where
+    `phase_mesh_fl` put the card's record: its row carries the record."""
+    from repro_torch.benchmarks import roofline_report as RR
+
+    lines = _stdout(RR.main).splitlines()
+    key = f"{rec['arch']},{rec['shape']},{rec['mesh']},"
+    rows = [line.split(",") for line in lines if line.startswith(key)]
+    rl = rec["roofline"]
+    want = [f"{rl['compute_s']:.4g}", f"{rl['memory_s']:.4g}",
+            rl["dominant"], f"{rl['model_flops']:.3e}"]
+    _check(lines[:1] == [RR.NOTE] and len(rows) == 1
+           and [rows[0][i] for i in (4, 5, 7, 8)] == want,
+           f"roofline report {lines}, want a row {key} carrying {want}")
+    for line in lines:
+        print(f"[bench] roofline: {line}")
+
+
+def _bench_sections():
+    """The section driver's runs (`repro_torch.benchmarks.expected.RUNS`)
+    on this machine's host, from the checkout's root, each held to the
+    JAX package's committed output; the scaling rows' and the
+    accounting bench's wall seconds printed as host timings."""
+    from repro_torch.benchmarks import expected as X
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    with contextlib.chdir(root):
+        for stem in X.STEMS:
+            t0 = time.perf_counter()
+            try:
+                text = X.capture(stem)
+            except AssertionError as e:
+                _fail(f"{stem}: {e}")
+            secs = time.perf_counter() - t0
+            got, want = X.deterministic(text).splitlines(), \
+                X.expected(stem).splitlines()
+            bad = next((i for i, (a, b) in enumerate(zip(got, want))
+                        if a != b), min(len(got), len(want)))
+            _check(got == want, f"{stem}: line {bad + 1} reads "
+                   f"{got[bad:bad + 1]}, the JAX package's "
+                   f"{want[bad:bad + 1]}")
+            print(f"[bench] {stem}: {len(got)} lines equal to "
+                  f"tests/torch_expected/benchmarks/{stem}.txt; {secs:.2f} s "
+                  f"(host clock)")
+            if stem in ("scaling", "accounting_bench"):
+                for line in text.splitlines():
+                    print(f"[bench] {stem} (host timings of the card's "
+                          f"machine): {line}")
+
+
+def phase_benchmarks(res, log, dry_rec):
+    """The port's benchmarks on this machine: fig4 and fig5 over the
+    learned row's log that the card recorded (`phase_forecast_report`,
+    whose RunResult is `res`), the roofline report over the card's
+    dry-run record `dry_rec` (`phase_mesh_fl`), and the section driver's
+    runs held to the JAX package's output. No kernel runs."""
+    t0 = time.perf_counter()
+    counters = _reset_counters()
+    _bench_renders(res, log)
+    _bench_roofline(dry_rec)
+    _bench_sections()
+    launches = {name: fn.launches for name, fn in counters.items()}
+    _check(not any(launches.values()),
+           f"the benchmarks launched the port's kernels: {launches}")
+    print(f"[bench] launches of the port's kernels during the phase: "
+          f"{launches}")
+    print(f"[times] phase_benchmarks: {time.perf_counter() - t0:.1f} s")
 
 
 # Card-against-CPU bar of one SMOKE round, per leaf: a share of the
@@ -1866,11 +2017,14 @@ def phase_mesh_fl(dev="cuda"):
     """FL in the mesh at phi3-mini-3.8b's main path on the card: a plain
     round of stacked clients, the int8 ring over two gloo ranks on the one
     card, the dry run's count of a local step against the card's, and
-    phi3 SMOKE's round against the CPU. Returns the plain round's
-    launches."""
+    phi3 SMOKE's round against the CPU. The FULL train_4k cell's dry-run
+    record, at the card's measured peaks, goes to the port's dry-run path
+    (`build/dryrun_torch.json`). Returns the plain round's launches and
+    that record."""
     import tempfile
     import numpy as np
     from repro_torch import configs
+    from repro_torch.benchmarks.roofline_report import RESULTS
     from repro_torch.benchmarks.table1 import LOCAL_STEPS, main_path
     from repro_torch.common.bridge import flatten_with_paths
     from repro_torch.fl import mesh_fl, mesh_ranks
@@ -2001,6 +2155,7 @@ def phase_mesh_fl(dev="cuda"):
                           M.make_production_mesh(multi_pod=False), "single",
                           peak_flops=peak_flops, hbm_bw=hbm_bw, verbose=False)
     rl = rec["roofline"]
+    dryrun.write_records(os.path.join(RESULTS, "dryrun_torch.json"), [rec])
     print(f"[mesh] dry run of the FULL {MESH_ARCH} train_4k cell on meta "
           f"({rec['compile_s']} s): {rl['flops']:.4e} FLOP, "
           f"{rl['bytes_accessed']:.4e} B, compute {rl['compute_s']:.3f} s, "
@@ -2038,7 +2193,7 @@ def phase_mesh_fl(dev="cuda"):
           f"CPU: losses {gl.tolist()} vs {cl.tolist()}; params within "
           f"{worst:.3f} of the bar (2% of each leaf's update + 2 ulps); phase "
           f"{time.perf_counter() - t_phase:.1f} s")
-    return launches
+    return launches, rec
 
 
 PAPER_RUNS = (("mnist", "row"), ("cifar10", "round"), ("aireadi", "round"),
@@ -2541,7 +2696,7 @@ def main():
         del d
     print(f"[main] launches over the four main paths "
           f"({', '.join(path_launches)}): {_total_launches(path_launches)}")
-    mesh_launches = phase_mesh_fl()
+    mesh_launches, dry_rec = phase_mesh_fl()
     t_phase = time.perf_counter()
     for arch in path_launches:
         phase_serve(arch)
@@ -2554,7 +2709,8 @@ def main():
           f"{time.perf_counter() - t_phase:.1f} s")
     for arch in REAL_PATHS:
         phase_real(arch)
-    forecast_launches = phase_forecast_report()
+    forecast_launches, learned_res, learned_log = phase_forecast_report()
+    phase_benchmarks(learned_res, learned_log, dry_rec)
     from repro_torch import configs
     for arch in configs.ARCH_IDS:
         if arch != VLM:

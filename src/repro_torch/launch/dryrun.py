@@ -214,6 +214,21 @@ def _meshes(which):
     return out
 
 
+def write_records(path, records):
+    """Merge `records` into the JSON list at `path` (made if missing),
+    one record a (arch, shape, mesh): a new record replaces the old."""
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    existing = []
+    if os.path.exists(path):
+        with open(path) as f:
+            existing = json.load(f)
+    keyed = {(r["arch"], r["shape"], r["mesh"]): r for r in existing}
+    for r in records:
+        keyed[(r["arch"], r["shape"], r["mesh"])] = r
+    with open(path, "w") as f:
+        json.dump(list(keyed.values()), f, indent=1)
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--arch", default="all")
@@ -284,16 +299,7 @@ def main(argv=None):
                 finally:
                     counted = None
 
-    os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)
-    existing = []
-    if os.path.exists(args.out):
-        with open(args.out) as f:
-            existing = json.load(f)
-    keyed = {(r["arch"], r["shape"], r["mesh"]): r for r in existing}
-    for r in records:
-        keyed[(r["arch"], r["shape"], r["mesh"])] = r
-    with open(args.out, "w") as f:
-        json.dump(list(keyed.values()), f, indent=1)
+    write_records(args.out, records)
     print(f"\n{len(records)} cells OK, {len(failures)} failed "
           f"-> {args.out}")
     if failures:

@@ -745,3 +745,49 @@ def test_learned_forecast_row_on_the_card_reconciles(gen, tmp_path):
     assert rec.ok and abs(rec.delta) <= RECONCILE_TOL, rec.first_divergence
     assert abs(summarize_path(log)["totals"]["total"] - res.total_cost) <= 1e-9
     assert log.read_text().count('"type": "ForecastUpdated"') > 0
+
+
+def _renders(log_dir):
+    """The port's fig4 and fig5 over `log_dir`'s row.events.jsonl, run
+    from that directory so both name the log alike."""
+    import contextlib
+    import io
+    import os
+    from repro_torch.benchmarks import fig4_timeline, fig5_costs
+
+    out, cwd = io.StringIO(), os.getcwd()
+    os.chdir(log_dir)
+    try:
+        with contextlib.redirect_stdout(out):
+            fig4_timeline.main(["--replay", "row.events.jsonl"])
+            fig5_costs.main(["--replay", "row.events.jsonl"])
+    finally:
+        os.chdir(cwd)
+    return out.getvalue()
+
+
+def test_real_row_renders_as_on_the_cpu(gen, tmp_path, monkeypatch):
+    """The real-training Table I row, int8 arm, at phi3 SMOKE size
+    recorded on the card, rendered by the port's fig4 and fig5, renders
+    byte for byte as the same row recorded on the CPU. A round's
+    measured time is its device's own, so the CPU's row takes the card's
+    calibration; the rest of the log is the runner's."""
+    from repro_torch.benchmarks import table1 as T1
+    from repro_torch.fl import training as T
+
+    row = next(r for r in T1.ROWS if r.dataset == "MNIST")
+    runs = {}
+    for device in ("cuda", "cpu"):
+        (tmp_path / device).mkdir()
+        runs[device] = T1.run_real(
+            row, rounds=2, n_clients=2, quantize=True, smoke=True,
+            record_to=tmp_path / device / "row.events.jsonl", device=device)
+        monkeypatch.setattr(T, "calibrate",
+                            lambda hooks, cal=runs["cuda"][2], **kw: cal)
+    (got, _, _), (want, _, _) = runs["cuda"], runs["cpu"]
+    assert got.total_cost == pytest.approx(want.total_cost, abs=1e-9)
+    assert got.comm_cost > 0
+    text = _renders(tmp_path / "cuda")
+    assert text == _renders(tmp_path / "cpu")
+    assert text.startswith("# MNIST, 2 clients x 2 epochs, fedcostaware")
+    assert f"# total = ${got.total_cost:.4f}" in text

@@ -312,8 +312,15 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     assert {"src/repro_torch/sharding/rules.py", "src/repro_torch/fl/mesh_fl.py",
             "src/repro_torch/fl/mesh_ranks.py",
             "src/repro_torch/configs/shapes.py"} <= scanned
+    assert {f"src/repro_torch/benchmarks/{m}.py" for m in (
+        "fig4_timeline", "fig5_costs", "multicloud", "preemption_realism",
+        "preemption_sweep", "accounting_bench", "scaling", "roofline_report",
+        "run", "expected")} | {
+            "src/repro_torch/examples/preemption_and_budgets.py"} <= scanned
     for f in files:
-        bad = _imported_roots(f) & {"jax", "jaxlib", "flax", "repro"}
+        # nor the JAX package's top-level scripts
+        bad = _imported_roots(f) & {"jax", "jaxlib", "flax", "repro",
+                                    "benchmarks", "examples"}
         assert not bad, f"{f.relative_to(REPO)} imports {sorted(bad)}"
 
 

@@ -1,0 +1,9 @@
+"""ssd_bwd_share: the SSD backward's share of the traced window. It reads
+the program's spans: the device wall of every `ssd.bwd` (the SSD op's
+backward, which recomputes the scan with the plain version), its launch
+gaps included."""
+from fedbench.harness import spans
+
+
+def read(ctx):
+    return spans.window_share(ctx, "ssd.bwd")

@@ -33,6 +33,9 @@ from the FLOPs and bytes counted over one such round
 (`launch.roofline.WorkCounter`, the kernels' own work included) and the
 peaks measured on the hooks' device, and rewrites
 `ClientProfile.mean_epoch_s` from the measurement.
+
+Under `torch.profiler` the round records spans at its layer boundaries
+(`common/trace.py` names them and says how to read them).
 """
 from __future__ import annotations
 
@@ -47,6 +50,7 @@ from repro_torch import configs
 from repro_torch.common.bridge import flatten_with_paths, unflatten
 from repro_torch.common.config import CROSS_ATTN, ClientProfile, ModelConfig
 from repro_torch.common.device import require_device, synchronize
+from repro_torch.common.trace import span
 from repro_torch.comms.payload import UpdatePayload
 from repro_torch.data.synthetic import token_stream
 from repro_torch.fl.server import ServerTrainerHooks
@@ -113,15 +117,20 @@ class TorchTrainerHooks(TrainerHooks):
         tree = unflatten(p)
         losses = []
         for batch in batches:
-            loss = lm.loss_fn(tree, cfg, batch)
-            grads = torch.autograd.grad(loss, list(p.values()))
-            with torch.no_grad():
-                for (k, leaf), g in zip(p.items(), grads):
-                    m[k].mul_(0.9).add_(g.float())
-                    leaf.copy_((leaf.float() - lr * m[k]).to(leaf.dtype))
-            losses.append(loss.detach())
+            with span("lm.step"):
+                with span("lm.forward"):
+                    loss = lm.loss_fn(tree, cfg, batch)
+                with span("lm.backward"):
+                    grads = torch.autograd.grad(loss, list(p.values()))
+                with span("fl.sgd"), torch.no_grad():
+                    for (k, leaf), g in zip(p.items(), grads):
+                        m[k].mul_(0.9).add_(g.float())
+                        leaf.copy_((leaf.float() - lr * m[k]).to(leaf.dtype))
+                losses.append(loss.detach())
         new_p = {k: v.detach() for k, v in p.items()}
-        return new_p, m, torch.stack(losses).float().cpu().numpy()
+        with span("fl.loss_readback"):
+            losses = torch.stack(losses).float().cpu().numpy()
+        return new_p, m, losses
 
     def _quant_roundtrip(self, delta):
         """Round-trip one participant's fp32 leaf delta through the int8
@@ -149,35 +158,40 @@ class TorchTrainerHooks(TrainerHooks):
         if not live:
             return
         stale = staleness or {}
-        batches = self._next_batches()
-        mask = np.zeros(len(self.clients))
-        for c in set(live):
-            mask[self.slot[c]] = (self._base_w[self.slot[c]]
-                                  * ServerTrainerHooks.staleness_discount(
-                                      stale.get(c, 0)))
-        w = torch.tensor(mask, dtype=torch.float32)
-        wn = w / torch.clamp(torch.sum(w), min=1e-12)
+        with span("fl.round", round=round_idx):
+            batches = self._next_batches()
+            mask = np.zeros(len(self.clients))
+            for c in set(live):
+                mask[self.slot[c]] = (self._base_w[self.slot[c]]
+                                      * ServerTrainerHooks.staleness_discount(
+                                          stale.get(c, 0)))
+            w = torch.tensor(mask, dtype=torch.float32)
+            wn = w / torch.clamp(torch.sum(w), min=1e-12)
 
-        global_p = dict(flatten_with_paths(self.params))
-        avg: Dict[str, torch.Tensor] = {}
-        mean_losses = []
-        for i in sorted(self.slot[c] for c in set(live)):
-            new_p, self.mu[i], losses = self._local_train(
-                self.params, self.mu[i], batches[i])
-            mean_losses.append(losses.mean())
-            for k, g in global_p.items():
-                d = new_p[k].float() - g.float()
-                if self.quantize:
-                    d = self._quant_roundtrip(d)
-                d = d * wn[i]
-                avg[k] = avg[k] + d if k in avg else d
-            del new_p
-        self.params = unflatten({
-            k: (g.float() + avg[k]).to(g.dtype) for k, g in global_p.items()})
-        self.losses.append({"round": round_idx,
-                            "mean_loss": float(np.mean(mean_losses))})
-        for c in live:
-            self._participants.pop(c, None)
+            global_p = dict(flatten_with_paths(self.params))
+            avg: Dict[str, torch.Tensor] = {}
+            mean_losses = []
+            for i in sorted(self.slot[c] for c in set(live)):
+                with span("fl.local_train"):
+                    new_p, self.mu[i], losses = self._local_train(
+                        self.params, self.mu[i], batches[i])
+                mean_losses.append(losses.mean())
+                with span("fl.fold"):
+                    for k, g in global_p.items():
+                        d = new_p[k].float() - g.float()
+                        if self.quantize:
+                            d = self._quant_roundtrip(d)
+                        d = d * wn[i]
+                        avg[k] = avg[k] + d if k in avg else d
+                del new_p
+            with span("fl.apply"):
+                self.params = unflatten({
+                    k: (g.float() + avg[k]).to(g.dtype)
+                    for k, g in global_p.items()})
+            self.losses.append({"round": round_idx,
+                                "mean_loss": float(np.mean(mean_losses))})
+            for c in live:
+                self._participants.pop(c, None)
 
     def update_payload(self, quantized: bool = False) -> UpdatePayload:
         """Byte-exact size of one client's update: the global parameters
@@ -190,10 +204,11 @@ class TorchTrainerHooks(TrainerHooks):
     def _next_batches(self):
         """`local_steps` batches for every client slot, on the device."""
         out = []
-        for s in self._streams:
-            rows = [next(s) for _ in range(self.local_steps)]
-            out.append([{k: torch.from_numpy(r[k]).long().to(self.device)
-                         for k in ("tokens", "labels")} for r in rows])
+        with span("fl.data_draw"):
+            for s in self._streams:
+                rows = [next(s) for _ in range(self.local_steps)]
+                out.append([{k: torch.from_numpy(r[k]).long().to(self.device)
+                             for k in ("tokens", "labels")} for r in rows])
         return out
 
     def global_params(self):

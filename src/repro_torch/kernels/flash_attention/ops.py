@@ -22,6 +22,7 @@ import math
 
 import torch
 
+from repro_torch.common.trace import span
 from repro_torch.kernels import _build
 from repro_torch.kernels._tma import map_strides, tma_ready
 from repro_torch.kernels.flash_attention.ref import reference_attention
@@ -157,7 +158,7 @@ class _FlashAttention(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         q, k, v = ctx.saved_tensors
-        with torch.enable_grad():
+        with span("attn.bwd"), torch.enable_grad():
             qkv = [x.detach().requires_grad_() for x in (q, k, v)]
             out = flash_attention_plain(*qkv, **ctx.opts)
             dq, dk, dv = torch.autograd.grad(out, qkv, g)

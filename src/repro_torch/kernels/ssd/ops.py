@@ -24,6 +24,7 @@ import ctypes
 
 import torch
 
+from repro_torch.common.trace import span
 from repro_torch.kernels import _build
 from repro_torch.kernels._tma import map_strides, tma_ready
 from repro_torch.kernels.ssd.ref import ssd_reference
@@ -155,7 +156,7 @@ class _SSD(torch.autograd.Function):
     @staticmethod
     def backward(ctx, gy):
         saved = ctx.saved_tensors
-        with torch.enable_grad():
+        with span("ssd.bwd"), torch.enable_grad():
             ins = [t.detach().requires_grad_() for t in saved]
             y, _ = ssd_plain(*ins, chunk=ctx.chunk)
             grads = torch.autograd.grad(y, ins, gy)

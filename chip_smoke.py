@@ -186,6 +186,7 @@ FLASH_RG_ROW = "flash_attention_fwd@recurrentgemma-2b"
 FLASH_SM90 = ("src/repro_torch/kernels/flash_attention/csrc/"
               "flash_attention_fwd_sm90.cu")
 SSD_SM90 = "src/repro_torch/kernels/ssd/csrc/ssd_fwd_sm90.cu"
+SSD_BWD = "src/repro_torch/kernels/ssd/csrc/ssd_bwd_sm90.cu"
 RGLRU_SRC = "src/repro_torch/kernels/rglru/csrc/rglru_scan.cu"
 # the real-training Table I row: its dataset (whose market and epoch
 # times the calibrated runs take), FL rounds a run, and the main paths
@@ -270,7 +271,8 @@ def _counters():
     from repro_torch.kernels.ssd import ops as sd
     return {"flash_attention_fwd": fa.flash_attention_fwd,
             "quantize": gq.quantize, "dequantize": gq.dequantize,
-            "ssd_fwd": sd.ssd_fwd, "rglru_scan_fwd": rg.rglru_scan_fwd,
+            "ssd_fwd": sd.ssd_fwd, "ssd_bwd": sd.ssd_bwd,
+            "rglru_scan_fwd": rg.rglru_scan_fwd,
             "rglru_scan_reverse": rg.rglru_scan_reverse,
             "rglru_scan_bwd": rg.rglru_scan_bwd}
 
@@ -325,10 +327,11 @@ def _hgmma_counts(stem):
 
 
 def _check_hgmma():
-    """Every head dim's instance of the bf16 flash library, and every
+    """Every head dim's instance of the bf16 flash library, every
     instance of the bf16 ssd library (each state dim, p up to 64 and up
-    to 128), has wgmma (HGMMA) instructions in its SASS, and ptxas
-    reports no spill in either library, nor in the rglru library."""
+    to 128) and every state dim's instance of the bf16 ssd backward has
+    wgmma (HGMMA) instructions in its SASS, and ptxas reports no spill in
+    any of them, nor in the rglru library."""
     from repro_torch.kernels import _build
     from repro_torch.kernels.flash_attention import ops as fa
     from repro_torch.kernels.rglru import ops as rg
@@ -342,7 +345,13 @@ def _check_hgmma():
                f"HGMMA in the {stem} instances of {what} dims "
                f"{sorted(dims)}, want {list(dims_want)}, each instance: "
                f"{counts}")
-    for stem in (fa._STEM_SM90, sd._STEM_SM90, rg._STEM):
+    counts = _hgmma_counts(sd._STEM_BWD)
+    dims = {int(m.group(1)) for name, c in counts.items() if c > 0
+            for m in [re.match(r"ssd_bwd_sm90_kernel<(\d+)>", name)] if m}
+    _check(dims == set(sd.STATE_DIMS),
+           f"HGMMA in the {sd._STEM_BWD} instances of state dims "
+           f"{sorted(dims)}, want {list(sd.STATE_DIMS)}: {counts}")
+    for stem in (fa._STEM_SM90, sd._STEM_SM90, sd._STEM_BWD, rg._STEM):
         spills = [line for line in _ptxas_lines(_build.build_log(stem))
                   if re.search(r"\b[1-9]\d* bytes spill", line)]
         _check(not spills, f"{stem} spills: {spills}")
@@ -506,6 +515,64 @@ def _check_ssd_bf16(sd, gen, shape, la_scale, sm90=True):
     return err.max().item()
 
 
+def _check_ssd_bwd_bf16(sd, gen, shape, la_scale):
+    """The bf16 ssd backward kernel at `shape` with log decays -|z|
+    la_scale, its four gradients (dx, dlog_a, dB, dC) each held to 2e-2
+    of its largest value against the plain recompute in bf16, and to one
+    bf16 rounding (2^-8 |ref| + 1e-5 max |ref|) against the plain
+    recompute in fp32 on the same bf16 inputs, which the kernel meets by
+    carrying its fp32 operands as bf16 hi + lo. Returns max |err|
+    against the fp32 plain version, over the four."""
+    b, s, h, p, g, n, chunk = shape
+    x, la, B, C = _ssd_inputs(gen, b, s, h, p, g, n, torch.bfloat16)
+    la = la * (la_scale / 0.1)
+    gy = _randn(gen, b, s, h, p, dtype=torch.bfloat16)
+    before = sd.ssd_bwd.sm90_launches
+    got = sd.ssd_bwd(x, la, B, C, gy, chunk=chunk)
+    torch.cuda.synchronize()
+    _check(sd.ssd_bwd.sm90_launches == before + 1,
+           f"ssd bwd bf16 {shape} did not run on the tensor-core kernel")
+    plain = sd.ssd_bwd_plain(x, la, B, C, gy, chunk=chunk)
+    want = sd.ssd_bwd_plain(x.float(), la, B.float(), C.float(),
+                            gy.float(), chunk=chunk)
+    worst_err, lines = 0.0, []
+    for name, o, pl, w, ref in zip(("dx", "dlog_a", "dB", "dC"), got, plain,
+                                   want, (x, la, B, C)):
+        rel = _rel_err(o, pl)
+        _check(o.dtype == ref.dtype and o.shape == ref.shape and rel <= 2e-2,
+               f"ssd bwd bf16 {shape} {name}: {o.dtype} {tuple(o.shape)}, "
+               f"relative error {rel} against the bf16 plain recompute")
+        err = (o.float() - w).abs()
+        top = w.abs().max().item()
+        bar = 2.0 ** -8 * w.abs() + 1e-5 * top
+        worst = (err / bar).max().item()
+        _check(bool((err <= bar).all()),
+               f"ssd bwd bf16 {shape} decay scale {la_scale} {name}: max "
+               f"|err| {err.max().item()}, {worst} of the bar, against the "
+               f"fp32 plain recompute")
+        worst_err = max(worst_err, err.max().item())
+        lines.append(f"{name} {rel:.2e}, {worst:.3f}")
+    print(f"[kernels] ssd bwd bf16 (b, s, h, p, g, n, chunk)={shape} on the "
+          f"tensor-core kernel, log decay -|z|*{la_scale}: by gradient, "
+          f"relative error against the bf16 plain recompute (tolerance "
+          f"2e-2), worst element's share of the one-rounding bar against "
+          f"the fp32 one: {'; '.join(lines)}")
+    return worst_err
+
+
+def check_ssd_bwd(gen, errs):
+    """The bf16 ssd backward at mamba2's layer, at weak and mamba2-like
+    decays, at a ragged S, two groups, state dim 16, and p of 32 and 128
+    (one and two blocks of 64 columns)."""
+    from repro_torch.kernels.ssd import ops as sd
+    errs["ssd_bwd"] = _check_ssd_bwd_bf16(sd, gen, SSD_MAIN, 0.1)
+    _check_ssd_bwd_bf16(sd, gen, SSD_MAIN, 1.0)
+    for case in [(2, 1000, 64, 64, 1, 128, 256), (1, 520, 8, 64, 2, 128, 256),
+                 (2, 300, 4, 64, 1, 16, 256), (2, 333, 4, 32, 1, 64, 256),
+                 (1, 520, 4, 128, 2, 128, 256)]:
+        _check_ssd_bwd_bf16(sd, gen, case, 1.0)
+
+
 def _check_ssd(gen, errs):
     from repro_torch.kernels.ssd import ops as sd
     errs["ssd_fwd"] = _check_ssd_bf16(sd, gen, SSD_MAIN, 0.1)
@@ -533,6 +600,7 @@ def _check_ssd(gen, errs):
         _check(rel <= 1e-5, f"ssd fp32 {case}: relative error {rel}")
         print(f"[kernels] ssd fp32 (b, s, h, p, g, n, chunk)={case} on the "
               f"CUDA-core kernel: {rel:.3e} of max |ref| (tolerance 1e-5)")
+    check_ssd_bwd(gen, errs)
 
 
 def _check_rglru(gen, errs):
@@ -633,6 +701,7 @@ def _reset_counters():
     for fn in counters.values():
         fn.launches = 0
     counters["ssd_fwd"].sm90_launches = 0
+    counters["ssd_bwd"].sm90_launches = 0
     return counters
 
 
@@ -642,8 +711,9 @@ def _expected_launches(cfg, n_leaves, train_rounds=2,
     the int8 arm's codec over `codec_updates` participant deltas of `cfg`
     launch (by default the main path: one fp32 round, then one int8
     round): a layer's forward kernels once a step, twice in the stacked
-    blocks under remat (the forward and the recompute), the RG-LRU fused
-    backward once a step in the backward (the reverse scan alone never),
+    blocks under remat (the forward and the recompute), the ssd and
+    RG-LRU backwards once a step in the backward (the reverse scan alone
+    never),
     and the codec on every leaf of every delta."""
     from repro_torch.benchmarks.table1 import LOCAL_STEPS
     steps = train_rounds * len(CLIENTS) * LOCAL_STEPS
@@ -657,6 +727,7 @@ def _expected_launches(cfg, n_leaves, train_rounds=2,
             "quantize": codec_updates * n_leaves,
             "dequantize": codec_updates * n_leaves,
             "ssd_fwd": layers("mamba2"),
+            "ssd_bwd": layers("mamba2", fwd=False),
             "rglru_scan_fwd": layers("rglru"),
             "rglru_scan_reverse": 0,
             "rglru_scan_bwd": layers("rglru", fwd=False)}
@@ -701,17 +772,22 @@ def phase_main_path(arch, layers, batch, seq, may_stay):
     torch.cuda.synchronize()
     launches = {name: fn.launches for name, fn in counters.items()}
     ssd_sm90 = counters["ssd_fwd"].sm90_launches
+    ssd_bwd_sm90 = counters["ssd_bwd"].sm90_launches
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     int8_losses = [r["mean_loss"] for r in hooks.losses]
     print(f"[main] {cfg.name}: fp32 arm mean losses {fp32_losses}; int8 arm "
           f"mean losses {int8_losses}; peak device memory {peak_gb:.2f} GB")
     print(f"[main] {cfg.name}: launches during its main path: {launches}; "
-          f"ssd on the tensor-core kernel: {ssd_sm90}")
+          f"ssd on the tensor-core kernels: {ssd_sm90} forward, "
+          f"{ssd_bwd_sm90} backward")
 
     _check(all(math.isfinite(x) for x in fp32_losses + int8_losses),
            f"{cfg.name}: non-finite loss")
     want = _expected_launches(cfg, len(init))
     _check(launches == want, f"{cfg.name}: launched {launches}, want {want}")
+    _check(ssd_bwd_sm90 == launches["ssd_bwd"],
+           f"{cfg.name}: {ssd_bwd_sm90} of its {launches['ssd_bwd']} ssd "
+           f"backward launches on the tensor-core kernel")
     _check(ssd_sm90 == launches["ssd_fwd"],
            f"{cfg.name}: {ssd_sm90} of its {launches['ssd_fwd']} ssd "
            f"launches on the tensor-core kernel")
@@ -2642,6 +2718,18 @@ def phase_times(gen, path_launches, mesh_launches, forecast_launches, errs,
         ms=_time_ms(lambda: sd.ssd_fwd(x, la, Bm, Cm, chunk=chunk)),
         plain_ms=_time_ms(lambda: sd.ssd_plain(x, la, Bm, Cm, chunk=chunk),
                           iters=3),
+        bound_ms=bound, bound_by=by, library_ms=None))
+    gy = _randn(gen, b, s, h, p, dtype=torch.bfloat16)
+    bound, by = _bound_ms(
+        *R.ssd_bwd_work(b, s, h, p, g, n, min(chunk, sd.SM90_PIECE),
+                        x.element_size()), torch.bfloat16)
+    rows.append(dict(
+        name="ssd_bwd", route="cuda", source=SSD_BWD,
+        replaces="none (jax.vjp of src/repro/models/ssm.py::ssd_reference)",
+        launches=launches["ssd_bwd"], max_abs_err=errs["ssd_bwd"],
+        ms=_time_ms(lambda: sd.ssd_bwd(x, la, Bm, Cm, gy, chunk=chunk)),
+        plain_ms=_time_ms(lambda: sd.ssd_bwd_plain(x, la, Bm, Cm, gy,
+                                                   chunk=chunk), iters=3),
         bound_ms=bound, bound_by=by, library_ms=None))
 
     # the RG-LRU scan at recurrentgemma-2b's layer, both modes and the

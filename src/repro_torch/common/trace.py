@@ -21,7 +21,9 @@ Functions):
                       and sum
     fl.apply          the new global parameters
     attn.bwd          kernels/flash_attention's backward
-    ssd.bwd           kernels/ssd's backward
+    ssd.bwd           kernels/ssd's backward: the tensor-core kernel
+                      (bf16) or the plain recompute, its scratch and
+                      outputs allocated
 
 Each span enters `torch.profiler.record_function(name)`, so it lands in
 the profiler's trace as a `user_annotation` beside the ops it launched,

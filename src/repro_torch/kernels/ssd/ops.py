@@ -11,12 +11,16 @@ cores (also counted in `sm90_launches`); fp32, and bf16 of any other p,
 to `csrc/ssd_fwd.cu`, on the CUDA cores. On a meta tensor (the dry run)
 it runs the same checks, adds the routed kernel's work to an active
 `WorkCounter` and returns an empty meta output, counting no launch.
-The backward recomputes the
-scan with the plain version under autograd, which is the gradient the
-JAX package takes (`jax.grad` of `ssd_reference`; its Pallas kernel has
-none). B and C are expanded to heads only inside that recompute, so
-autograd's sum over the heads of a group gives their gradients. A
-backward kernel is queued in ROADMAP.
+The backward, `ssd_bwd`, launches `csrc/ssd_bwd_sm90.cu` on the tensor
+cores exactly where the forward took `ssd_fwd_sm90.cu` (`route_bwd`;
+counted in `ssd_bwd.launches` and `ssd_bwd.sm90_launches`; on a meta
+tensor its work goes to an active `WorkCounter`, with no launch). Every
+other call, fp32 and other bf16 head dims on the card (which no
+configuration sends) and every CPU tensor, recomputes the scan with the
+plain version under autograd, which is the gradient the JAX package
+takes (`jax.grad` of `ssd_reference`; its Pallas kernel has none). B and
+C are expanded to heads only inside that recompute, so autograd's sum
+over the heads of a group gives their gradients.
 """
 from __future__ import annotations
 
@@ -38,6 +42,9 @@ MAX_P_SM90 = 128
 SM90_PIECE = 128
 _STEM = "ssd_fwd"                 # fp32 and other bf16, CUDA cores
 _STEM_SM90 = "ssd_fwd_sm90"       # bf16, tensor cores
+_STEM_BWD = "ssd_bwd_sm90"        # the bf16 backward, tensor cores
+# columns of p a block of the backward kernel takes
+BWD_COLS = 64
 
 
 def _heads(t, h):
@@ -61,13 +68,23 @@ def route(dtype, p):
     return _STEM
 
 
+def route_bwd(dtype, p):
+    """The kernel source `ssd_bwd` launches for x of this dtype and head
+    dim, or None for the plain recompute: the tensor-core backward exactly
+    where `route` picks the tensor-core forward."""
+    return _STEM_BWD if route(dtype, p) == _STEM_SM90 else None
+
+
 def _entry(stem):
     fn = getattr(_build.library(stem), stem)
     if fn.argtypes is None:
         ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        # the CUDA-core entry also takes is_bf16 and the chunk
-        n_int = 8 if stem == _STEM else 6
-        fn.argtypes = [ptr] * 5 + [i32] * n_int + [i64] * 15 + [ptr]
+        if stem == _STEM_BWD:
+            fn.argtypes = [ptr] * 12 + [i32] * 6 + [i64] * 21 + [ptr]
+        else:
+            # the CUDA-core entry also takes is_bf16 and the chunk
+            n_int = 8 if stem == _STEM else 6
+            fn.argtypes = [ptr] * 5 + [i32] * n_int + [i64] * 15 + [ptr]
         fn.restype = ctypes.c_int
     return fn
 
@@ -122,6 +139,12 @@ ssd_fwd.launches = 0
 ssd_fwd.sm90_launches = 0
 
 
+def _tma_copy(t):
+    """t as it lies where TMA can read it, else a contiguous copy."""
+    return t if tma_ready(t) else t.clone(
+        memory_format=torch.contiguous_format)
+
+
 def _launch(stem, xbar, log_a, Bm, Cm, y, chunk):
     """Launch `stem`'s kernel, writing y."""
     b, s, h, p = xbar.shape
@@ -130,9 +153,7 @@ def _launch(stem, xbar, log_a, Bm, Cm, y, chunk):
         # TMA reads x, B and C as they lie, or a contiguous copy where
         # their base or strides break its alignment; the kernel cuts the
         # sequence into its own pieces, whatever the chunk
-        xbar, Bm, Cm = (t if tma_ready(t)
-                        else t.clone(memory_format=torch.contiguous_format)
-                        for t in (xbar, Bm, Cm))
+        xbar, Bm, Cm = (_tma_copy(t) for t in (xbar, Bm, Cm))
         args = (b, s, h, p, g, n, *map_strides(xbar), *log_a.stride(),
                 *map_strides(Bm), *map_strides(Cm))
     else:
@@ -146,6 +167,68 @@ def _launch(stem, xbar, log_a, Bm, Cm, y, chunk):
     _build.check(stem, rc)
 
 
+def ssd_bwd_plain(xbar, log_a, Bm, Cm, gy, *, chunk=256):
+    """`ssd_bwd`'s plain version: the autograd gradients of a recompute of
+    `ssd_plain`, which computes in fp32."""
+    with torch.enable_grad():
+        ins = [t.detach().requires_grad_() for t in (xbar, log_a, Bm, Cm)]
+        y, _ = ssd_plain(*ins, chunk=chunk)
+        return torch.autograd.grad(y, ins, gy)
+
+
+def ssd_bwd(xbar, log_a, Bm, Cm, gy, *, chunk=256):
+    """The gradients (dx, dlog_a, dB, dC) of `ssd`'s y given gy (b,s,h,p):
+    dx in x's dtype, dlog_a in fp32, dB and dC (b,s,g,n) in theirs."""
+    if xbar.device.type == "cpu" or route_bwd(xbar.dtype,
+                                              xbar.shape[-1]) is None:
+        return ssd_bwd_plain(xbar, log_a, Bm, Cm, gy, chunk=chunk)
+    _check(xbar, log_a, Bm, Cm, chunk)
+    if gy.shape != xbar.shape or gy.dtype != xbar.dtype or (
+            gy.device != xbar.device):
+        raise ValueError(f"ssd_bwd: gy {tuple(gy.shape)} {gy.dtype} on "
+                         f"{gy.device}, want x's")
+    b, s, h, p = xbar.shape
+    g, n = Bm.shape[2], Bm.shape[3]
+    dev, dt = xbar.device, xbar.dtype
+    dx = torch.empty((b, s, h, p), dtype=dt, device=dev)
+    dla = torch.zeros((b, s, h), dtype=torch.float32, device=dev)
+    dB = torch.empty((b, s, g, n), dtype=dt, device=dev)
+    dC = torch.empty((b, s, g, n), dtype=dt, device=dev)
+    if dev.type == "cuda":
+        _launch_bwd(xbar, log_a, Bm, Cm, gy, dx, dla, dB, dC)
+        ssd_bwd.launches += 1
+        ssd_bwd.sm90_launches += 1
+    roofline.add_kernel_work("ssd_bwd", lambda: roofline.ssd_bwd_work(
+        b, s, h, p, g, n, min(chunk, SM90_PIECE), dx.element_size()))
+    return dx, dla, dB, dC
+
+
+ssd_bwd.launches = 0
+ssd_bwd.sm90_launches = 0
+
+
+def _launch_bwd(xbar, log_a, Bm, Cm, gy, dx, dla, dB, dC):
+    """Launch the tensor-core backward and its reduce, with the fp32
+    scratch they take: the forward sweep's entry states of every piece
+    and the per-head partials of dB and dC."""
+    b, s, h, p = xbar.shape
+    g, n = Bm.shape[2], Bm.shape[3]
+    halves = -(-p // BWD_COLS)
+    pieces = -(-s // SM90_PIECE)
+    f32 = dict(dtype=torch.float32, device=xbar.device)
+    states = torch.empty((b * h * halves, pieces, BWD_COLS, n), **f32)
+    pdB = torch.empty((b, s, h * halves, n), **f32)
+    pdC = torch.empty((b, s, h * halves, n), **f32)
+    xbar, Bm, Cm, gy = (_tma_copy(t) for t in (xbar, Bm, Cm, gy))
+    ptrs = (t.data_ptr() for t in (xbar, log_a, Bm, Cm, gy, dx, dla, dB, dC,
+                                   states, pdB, pdC))
+    rc = _entry(_STEM_BWD)(
+        *ptrs, b, s, h, p, g, n, *map_strides(xbar), *log_a.stride(),
+        *map_strides(Bm), *map_strides(Cm), *map_strides(gy),
+        *dx.stride()[:3], *dla.stride(), _build.stream_ptr(dx))
+    _build.check(_STEM_BWD, rc)
+
+
 class _SSD(torch.autograd.Function):
     @staticmethod
     def forward(ctx, xbar, log_a, Bm, Cm, chunk):
@@ -155,11 +238,8 @@ class _SSD(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, gy):
-        saved = ctx.saved_tensors
-        with span("ssd.bwd"), torch.enable_grad():
-            ins = [t.detach().requires_grad_() for t in saved]
-            y, _ = ssd_plain(*ins, chunk=ctx.chunk)
-            grads = torch.autograd.grad(y, ins, gy)
+        with span("ssd.bwd"):
+            grads = ssd_bwd(*ctx.saved_tensors, gy, chunk=ctx.chunk)
         return (*grads, None)
 
 

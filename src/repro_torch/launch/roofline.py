@@ -97,6 +97,15 @@ def ssd_work(b, s, h, p, g, n, chunk, elem_bytes):
             + 2 * b * s * g * n * elem_bytes)
 
 
+def ssd_bwd_work(b, s, h, p, g, n, chunk, elem_bytes):
+    """The ssd backward's work: twice the forward's products; x, gy and
+    dx, the fp32 log decay and its gradient, one group's B, C, dB and dC,
+    each once."""
+    return (2 * ssd_flops(b, s, h, p, n, chunk),
+            3 * b * s * h * p * elem_bytes + 2 * b * s * h * 4
+            + 4 * b * s * g * n * elem_bytes)
+
+
 def rglru_work(n, backward=False):
     """The RG-LRU scan's work over n fp32 elements: forward (and reverse)
     read la and the input and write the output, one fused multiply-add a

@@ -345,6 +345,77 @@ def test_ssd_bf16_copies_an_expanded_group(gen):
     _assert_ssd_rounds_once(y, x, la, B2.contiguous(), C2.contiguous(), 32)
 
 
+def _assert_ssd_bwd_rounds_once(got, x, la, B, C, gy, chunk=256):
+    """The bf16 backward's four gradients: each of x's, B's and C's dtype
+    and shape (dlog_a fp32), within one bf16 rounding of the plain
+    recompute in fp32 on the same bf16 inputs."""
+    want = sd.ssd_bwd_plain(x.float(), la, B.float(), C.float(), gy.float(),
+                            chunk=chunk)
+    for o, w, ref in zip(got, want, (x, la, B, C)):
+        assert o.dtype == ref.dtype and o.shape == ref.shape
+        err = (o.float() - w).abs()
+        bar = 2.0 ** -8 * w.abs() + 1e-5 * w.abs().max()
+        assert bool((err <= bar).all()), (err / bar).max().item()
+
+
+# (b, s, h, p, g, n, log-decay scale): the bf16 backward at mamba2-1.3b's
+# layer, every state dim, p of 32, 64 and 128 (one and two blocks of 64
+# columns), one and two groups, S of 77 to 1000 (no multiple of its
+# 128-row pieces), decays of 0.1 to 1
+SSD_BWD_CASES = [
+    (2, 2048, 64, 64, 1, 128, 0.1),
+    (2, 2048, 64, 64, 1, 128, 1.0),
+    (2, 1000, 8, 64, 1, 128, 1.0),
+    (1, 520, 8, 64, 2, 128, 1.0),
+    (2, 300, 4, 64, 1, 16, 0.5),
+    (2, 333, 4, 32, 1, 32, 1.0),
+    (1, 77, 3, 128, 3, 64, 0.1),
+    (1, 520, 4, 128, 2, 128, 1.0),
+]
+
+
+@pytest.mark.parametrize("b,s,h,p,g,n,la_scale", SSD_BWD_CASES)
+def test_ssd_bwd_kernel_rounds_once(gen, b, s, h, p, g, n, la_scale):
+    x, la, B, C = _ssd_bf16_inputs(gen, b, s, h, p, g, n, la_scale)
+    gy = _randn(gen, b, s, h, p, dtype=torch.bfloat16)
+    before = (sd.ssd_bwd.launches, sd.ssd_bwd.sm90_launches)
+    got = sd.ssd_bwd(x, la, B, C, gy, chunk=256)
+    torch.cuda.synchronize()
+    assert (sd.ssd_bwd.launches, sd.ssd_bwd.sm90_launches) == (
+        before[0] + 1, before[1] + 1)
+    _assert_ssd_bwd_rounds_once(got, x, la, B, C, gy)
+
+
+def test_ssd_bwd_through_autograd_on_packed_views(gen):
+    """The op's backward on the views `mamba2_mix` hands it (x, B and C
+    out of one packed tensor), through autograd."""
+    b, s, h, p, n = 2, 300, 4, 64, 128
+    packed = _randn(gen, b, s, h * p + 2 * n, dtype=torch.bfloat16,
+                    scale=0.4)
+    x = packed[..., :h * p].reshape(b, s, h, p)
+    B = packed[..., h * p:h * p + n].reshape(b, s, 1, n)
+    C = packed[..., h * p + n:].reshape(b, s, 1, n)
+    la = -_randn(gen, b, s, h).abs() * 0.5
+    gy = _randn(gen, b, s, h, p, dtype=torch.bfloat16)
+    ins = [t.detach().requires_grad_() for t in (x, la, B, C)]
+    before = sd.ssd_bwd.sm90_launches
+    y, _ = sd.ssd(*ins, chunk=256)
+    got = torch.autograd.grad(y, ins, gy)
+    assert sd.ssd_bwd.sm90_launches == before + 1
+    _assert_ssd_bwd_rounds_once(got, x, la, B, C, gy)
+
+
+def test_ssd_bwd_fp32_keeps_the_plain_recompute(gen):
+    """fp32 on the card: no backward kernel, the plain recompute."""
+    x, la, B, C = _ssd_inputs(gen, 1, 200, 2, 64, 1, 64)
+    gy = _randn(gen, 1, 200, 2, 64)
+    before = (sd.ssd_bwd.launches, sd.ssd_bwd.sm90_launches)
+    got = sd.ssd_bwd(x, la, B, C, gy, chunk=64)
+    assert (sd.ssd_bwd.launches, sd.ssd_bwd.sm90_launches) == before
+    for a, w in zip(got, sd.ssd_bwd_plain(x, la, B, C, gy, chunk=64)):
+        assert torch.equal(a, w)
+
+
 def test_ssd_kernel_reads_strided_and_expanded_inputs(gen):
     """x, B and C as views of one packed tensor, as `mamba2_mix` slices
     them out of the convolution's output, and B as an expanded view."""

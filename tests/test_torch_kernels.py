@@ -11,8 +11,11 @@ PyTorch against a float64 loop). The bf16
 tensor-core flash kernel's arithmetic (key tiles in order, P as bf16 hi
 + lo) and the bf16 tensor-core SSD kernel's (128-row pieces, 64-row
 tiles in order, M, the state and dec x as bf16 hi + lo) are emulated in
-plain PyTorch and held to JAX's fp32 reference at one bf16 rounding, and
-the wrappers' layout checks and the SSD route are tested on CPU tensors.
+plain PyTorch and held to JAX's fp32 reference at one bf16 rounding, as
+is the bf16 SSD backward kernel's (its forward sweep of entry states,
+its reverse sweep, and its seven fp32 operands as bf16 hi + lo) against
+`jax.vjp`, and the wrappers' layout checks, the SSD routes and the
+backward's meta and CPU branches are tested on CPU tensors.
 
 On the CPU each wrapper runs its plain version; the CUDA kernels are
 held to the same plain versions on the card (`chip_smoke.py` and
@@ -239,7 +242,8 @@ class TestBuild:
         assert _build._library_path(src) != before
 
     def test_tensor_core_sources_share_one_header(self):
-        for stem in ("flash_attention_fwd_sm90", "ssd_fwd_sm90"):
+        for stem in ("flash_attention_fwd_sm90", "ssd_fwd_sm90",
+                     "ssd_bwd_sm90"):
             headers = _build._headers(_build.sources()[stem])
             assert [h.name for h in headers] == ["sm90.cuh"]
 
@@ -555,6 +559,240 @@ class TestTensorCoreSSDArithmetic:
         assert B.stride(1) * 2 == C.stride(1) * 2 == 8704
         assert C.data_ptr() - B.data_ptr() == 256
         assert B.shape == C.shape == (1, 4, 1, 128)
+
+
+# the backward kernel's fp32 operands that enter a product as bf16 hi +
+# lo: M^T (for dx), P^T (dB), P (dC), dS (dx, dB), the entry state S
+# (dC), e o gy (the dS update) and dec o x (the forward sweep's states)
+BWD_SPLITS = ("mt", "pt", "p", "ds", "s", "egy", "decx")
+
+
+def _ssd_bwd_sm90_arithmetic(x, la, B, C, gy, split=BWD_SPLITS, piece=128,
+                             cols=64):
+    """The bf16 tensor-core SSD backward kernel's arithmetic in plain
+    PyTorch on the CPU. Per (batch, head, 64 columns of p): a forward
+    sweep of 128-row pieces keeps each piece's entry state S (the
+    forward's state update); a reverse sweep carries dS, the state's
+    gradient after the piece, and per piece forms dx = dec o (B dS^T) +
+    M^T gy, dB = dec o (x dS) + P^T C, dC = e o (gy S) + P B, with M =
+    (C B^T) o E, P = (gy x^T) o E, E_ij = exp(cs_i - cs_j) for j <= i;
+    dcs = T's row sums less its column sums off the diagonal (T = M o gy
+    x^T) + C . (e o gy S) - B . (dec o x dS), plus <dS, S_next> at the
+    last row; dlog_a its reverse cumulative sum; then dS <- exp(cs_end)
+    dS + (e o gy)^T C. dB and dC are summed over a group's heads and
+    column blocks in fp32, then dx, dB, dC rounded to bf16 once. The
+    operands named in `split` enter their products as bf16 hi + lo, the
+    others as bf16 hi alone; with `split` None nothing is rounded (and
+    nothing is rounded at the end: the algorithm in fp32)."""
+    b, s, h, p = x.shape
+    g, n = B.shape[2], B.shape[3]
+    rnd = ((lambda name, t: t) if split is None
+           else (lambda name, t: _hi_lo(t, name in split)))
+    npc, halves = -(-s // piece), -(-p // cols)
+    pad = npc * piece - s
+
+    def padded(t, width=None):
+        t = torch.nn.functional.pad(t, (0, 0) * (t.dim() - 2) + (0, pad))
+        return t if width is None else torch.nn.functional.pad(
+            t, (0, width - t.shape[-1]))
+
+    xs, gys = padded(x, halves * cols), padded(gy, halves * cols)
+    Bs, Cs = padded(B), padded(C)
+    las = torch.nn.functional.pad(la, (0, 0, 0, pad))
+    dx = torch.zeros(b, npc * piece, h, halves * cols)
+    dla = torch.zeros(b, npc * piece, h)
+    parts = torch.zeros(2, b, npc * piece, h * halves, n)
+    idx = torch.arange(piece)
+    below = idx[:, None] >= idx[None, :]                # [i, j]: j <= i
+    strict = idx[:, None] > idx[None, :]
+    for hh in range(h * halves):
+        head, half = divmod(hh, halves)
+        grp = head // (h // g)
+        c0 = half * cols
+        X, GY = xs[:, :, head, c0:c0 + cols], gys[:, :, head, c0:c0 + cols]
+        Bh, Ch, L = Bs[:, :, grp], Cs[:, :, grp], las[:, :, head]
+        states, st = [], torch.zeros(b, cols, n)
+        for c in range(npc):
+            cs = torch.cumsum(L[:, c * piece:(c + 1) * piece], -1)
+            states.append(st)
+            dec = torch.exp(cs[:, -1:] - cs)
+            st = (st * torch.exp(cs[:, -1])[:, None, None]
+                  + rnd("decx", dec[..., None]
+                        * X[:, c * piece:(c + 1) * piece]).transpose(1, 2)
+                  @ Bh[:, c * piece:(c + 1) * piece])
+        dS = torch.zeros(b, cols, n)
+        for c in reversed(range(npc)):
+            rows = slice(c * piece, (c + 1) * piece)
+            Xc, Gc, Bc, Cc = X[:, rows], GY[:, rows], Bh[:, rows], Ch[:, rows]
+            cs = torch.cumsum(L[:, rows], -1)
+            e, dec = torch.exp(cs), torch.exp(cs[:, -1:] - cs)
+            end = ((dS * states[c + 1]).sum((1, 2)) if c + 1 < npc
+                   else torch.zeros(b))
+            dSr, Sr = rnd("ds", dS), rnd("s", states[c])
+            E = torch.where(below, torch.exp(torch.where(
+                below, cs[:, :, None] - cs[:, None, :], 0.0)), 0.0)
+            S_, G_ = Cc @ Bc.transpose(1, 2), Gc @ Xc.transpose(1, 2)
+            M, P = S_ * E, G_ * E                       # [i, j]
+            T = M * G_
+            dxc = (dec[..., None] * (Bc @ dSr.transpose(1, 2))
+                   + rnd("mt", M.transpose(1, 2)) @ Gc)
+            dBc = dec[..., None] * (Xc @ dSr)
+            boff = (Bc * dBc).sum(-1)
+            dBc = dBc + rnd("pt", P.transpose(1, 2)) @ Cc
+            dCc = e[..., None] * (Gc @ Sr)
+            coff = (Cc * dCc).sum(-1)
+            dCc = dCc + rnd("p", P) @ Bc
+            dcs = (torch.where(strict, T, 0.0).sum(-1)
+                   - torch.where(strict, T, 0.0).sum(-2) + coff - boff)
+            dcs[:, -1] += end
+            dla[:, rows, head] += torch.flip(
+                torch.cumsum(torch.flip(dcs, [-1]), -1), [-1])
+            dx[:, rows, head, c0:c0 + cols] = dxc
+            parts[0, :, rows, hh], parts[1, :, rows, hh] = dBc, dCc
+            dS = (dS * torch.exp(cs[:, -1])[:, None, None]
+                  + rnd("egy", e[..., None] * Gc).transpose(1, 2) @ Cc)
+    dB, dC = parts.reshape(2, b, npc * piece, g, -1, n).sum(4)
+    out = torch.float32 if split is None else torch.bfloat16
+    return (dx[:, :s, :, :p].to(out), dla[:, :s], dB[:, :s].to(out),
+            dC[:, :s].to(out))
+
+
+def _ssd_bwd_case(g, n, la_scale=1.0, bf16=True, s=520, h=4, p=64):
+    """b=1, s=520 (four pieces and a ragged one), 4 heads: the inputs (x,
+    B, C and gy bf16 values in fp32 where `bf16`) and `jax.vjp` of JAX's
+    fp32 reference on them at chunk 260."""
+    rng = np.random.RandomState(30 + g + n)
+    x, la, B, C = _ssd_arrays(rng, 1, s, h, p, n, g=g, la_scale=la_scale)
+    gy = rng.randn(1, s, h, p).astype(np.float32)
+    if bf16:
+        x, B, C, gy = (np.asarray(jnp.asarray(a, jnp.bfloat16), np.float32)
+                       for a in (x, B, C, gy))
+
+    def f(x, la, B, C):
+        return jax_ssd_ref(x, la, jnp.repeat(B, h // g, axis=2),
+                           jnp.repeat(C, h // g, axis=2), chunk=s // 2)[0]
+
+    _, vjp = jax.vjp(f, *(jnp.asarray(a) for a in (x, la, B, C)))
+    want = [np.asarray(w) for w in vjp(jnp.asarray(gy))]
+    return [torch.from_numpy(a) for a in (x, la, B, C, gy)], want
+
+
+class TestTensorCoreSSDBackwardArithmetic:
+    """What the bf16 SSD backward kernel computes, on the CPU; the kernel
+    itself is held to the same bar against the plain recompute on the
+    card (`chip_smoke.py`, tests/test_torch_cuda.py)."""
+
+    @pytest.mark.parametrize("g,n", [(1, 16), (1, 128), (2, 16), (2, 128)])
+    def test_algorithm_matches_jax_vjp_in_fp32(self, g, n):
+        """Its pieces, its forward and reverse sweeps and its dcs, with
+        nothing rounded, on fp32 inputs: 1e-5 relative to each gradient's
+        largest value, the JAX package's ssd bar."""
+        ins, want = _ssd_bwd_case(g, n, bf16=False)
+        got = _ssd_bwd_sm90_arithmetic(*ins, split=None)
+        for a, w in zip(got, want):
+            assert a.shape == w.shape
+            assert _rel(a.numpy(), w) < 1e-5
+
+    @pytest.mark.parametrize("g,n,la_scale", [
+        (1, 16, 1.0), (1, 128, 1.0), (2, 16, 1.0), (2, 128, 1.0),
+        (1, 128, 0.1)])
+    def test_hi_lo_operands_round_once_against_jax_vjp(self, g, n, la_scale):
+        """Every fp32 operand as bf16 hi + lo keeps each gradient within
+        one bf16 rounding (2^-8 |ref| + 1e-5 max |ref|) of `jax.vjp` of
+        JAX's fp32 reference on the same bf16 inputs."""
+        ins, want = _ssd_bwd_case(g, n, la_scale)
+        got = _ssd_bwd_sm90_arithmetic(*ins)
+        for a, w in zip(got, want):
+            worst, over = _share_of_bar(a, w)
+            assert over == 0, worst
+
+    def test_two_column_blocks_of_p_meet_in_the_sums(self):
+        """p = 128 runs as two blocks of 64 columns, whose dlog_a, dB and
+        dC partials are summed: the same bar."""
+        ins, want = _ssd_bwd_case(2, 64, p=128, s=300)
+        for a, w in zip(_ssd_bwd_sm90_arithmetic(*ins), want):
+            worst, over = _share_of_bar(a, w)
+            assert over == 0, worst
+
+    @pytest.mark.parametrize("hi_only", BWD_SPLITS)
+    def test_one_operand_as_hi_alone_breaks_the_bar(self, hi_only):
+        """Rounding any one of the seven fp32 operands once to bf16 puts
+        some gradient over the one-rounding bar: each needs its lo term."""
+        ins, want = _ssd_bwd_case(1, 128, la_scale=0.1)
+        split = tuple(o for o in BWD_SPLITS if o != hi_only)
+        shares = [_share_of_bar(a, w)
+                  for a, w in zip(_ssd_bwd_sm90_arithmetic(*ins, split=split),
+                                  want)]
+        assert max(worst for worst, _ in shares) > 2, shares
+        assert sum(over for _, over in shares) > 0, shares
+
+    @pytest.mark.parametrize("dtype,p", [
+        (torch.bfloat16, 64), (torch.bfloat16, 8), (torch.bfloat16, 24),
+        (torch.bfloat16, 128), (torch.bfloat16, 20), (torch.bfloat16, 136),
+        (torch.float32, 64), (torch.float32, 128)])
+    def test_backward_routes_where_the_forward_does(self, dtype, p):
+        """The backward kernel takes exactly the calls whose forward ran
+        the tensor-core kernel; the rest keep the plain recompute."""
+        fwd_sm90 = sd.route(dtype, p) == "ssd_fwd_sm90"
+        assert sd.route_bwd(dtype, p) == ("ssd_bwd_sm90" if fwd_sm90
+                                          else None)
+
+    @pytest.mark.parametrize("p,g,n", [(64, 1, 128), (128, 2, 16),
+                                       (32, 4, 64)])
+    def test_meta_branch_counts_the_kernels_work(self, p, g, n):
+        """On meta tensors the backward returns empty gradients of the
+        inputs' shapes and dtypes, adds the kernel's work once to an
+        active `WorkCounter`, and counts no launch."""
+        from repro_torch.launch import roofline
+
+        b, s, h, chunk = 2, 300, 4, 256
+        meta = dict(device="meta")
+        ins = (torch.empty(b, s, h, p, dtype=torch.bfloat16, **meta),
+               torch.empty(b, s, h, **meta),
+               torch.empty(b, s, g, n, dtype=torch.bfloat16, **meta),
+               torch.empty(b, s, g, n, dtype=torch.bfloat16, **meta))
+        gy = torch.empty(b, s, h, p, dtype=torch.bfloat16, **meta)
+        before = (sd.ssd_bwd.launches, sd.ssd_bwd.sm90_launches)
+        with roofline.WorkCounter() as wc:
+            got = sd.ssd_bwd(*ins, gy, chunk=chunk)
+        assert (sd.ssd_bwd.launches, sd.ssd_bwd.sm90_launches) == before
+        for a, ref in zip(got, ins):
+            assert a.device.type == "meta"
+            assert a.shape == ref.shape and a.dtype == ref.dtype
+        flops, nbytes = roofline.ssd_bwd_work(b, s, h, p, g, n, 128, 2)
+        assert flops == 2 * roofline.ssd_flops(b, s, h, p, n, 128)
+        assert wc.kernels == {"ssd_bwd": [1, flops, nbytes]}
+
+    def test_bound_at_mamba2s_shape(self):
+        """mamba2-1.3b's layer: 30.2 GFLOP in 0.0305 ms at 989 TFLOP/s,
+        106.95 MB in 0.0319 ms at 3.35 TB/s: the bytes bound it."""
+        from repro_torch.launch import roofline
+
+        flops, nbytes = roofline.ssd_bwd_work(2, 2048, 64, 64, 1, 128, 128, 2)
+        assert nbytes == 3 * 2 * 2048 * 64 * 64 * 2 + 2 * 2 * 2048 * 64 * 4 \
+            + 4 * 2 * 2048 * 128 * 2
+        assert round(1e3 * flops / 989e12, 4) == 0.0305
+        assert round(1e3 * nbytes / 3.35e12, 4) == 0.0319
+
+    @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+    def test_cpu_tensors_take_the_plain_recompute(self, dtype):
+        """On CPU tensors the op's backward is the plain recompute, bit for
+        bit, and counts no launch."""
+        rng = np.random.RandomState(16)
+        x, la, B, C = (torch.from_numpy(a) for a in
+                       _ssd_arrays(rng, 1, 200, 4, 64, 32, g=2))
+        x, B, C = (t.to(dtype) for t in (x, B, C))
+        gy = torch.from_numpy(rng.randn(1, 200, 4, 64).astype(
+            np.float32)).to(dtype)
+        ins = [t.requires_grad_() for t in (x, la, B, C)]
+        before = (sd.ssd_bwd.launches, sd.ssd_bwd.sm90_launches)
+        y, _ = sd.ssd(*ins, chunk=64)
+        got = torch.autograd.grad(y, ins, gy)
+        assert (sd.ssd_bwd.launches, sd.ssd_bwd.sm90_launches) == before
+        want = sd.ssd_bwd_plain(*(t.detach() for t in ins), gy, chunk=64)
+        for a, w in zip(got, want):
+            assert a.dtype == w.dtype
+            torch.testing.assert_close(a, w, atol=0, rtol=0)
 
 
 def _rglru_arrays(rng, B, S, W, la_scale=0.2):

@@ -37,6 +37,7 @@ def calibrate(cell_name, seeds, control_seeds, device="cuda", root=None,
     spec = S.benchmark(root)
     cell = S.cell(spec, cell_name)
     cfg = S.config(spec, cell["config"], root)
+    fam = S.family(cfg, bench_dir)
     mix = S.traffic(cell["traffic"], bench_dir)
     dev = torch.device(device)
     if dev.type == "cuda":
@@ -52,28 +53,29 @@ def calibrate(cell_name, seeds, control_seeds, device="cuda", root=None,
     refs = {}
     for seed in seeds:
         t0 = time.perf_counter()
-        w0 = weights.make(cfg, seed, dev)
-        prog = Program(cfg, mix, seed, w0, device=dev)
+        w0 = weights.make(fam, cfg, seed, dev)
+        prog = Program(fam, cfg, mix, seed, w0, device=dev)
         prog.run_round()
         prog_r = session.program_readings(prog, w0)
         del prog, w0
         session.free_device(dev)
-        refs[seed] = session.reference_readings(cfg, mix, seed, dev)
+        refs[seed] = session.reference_readings(fam, cfg, mix, seed, dev)
         gap = compare.gaps(prog_r, refs[seed])
         out["program"][seed] = gap
         log(f"program seed {seed}: {gap} ({time.perf_counter() - t0:.1f} s)")
         log(f"  widest grad leaves: "
             f"{compare.worst_leaves(prog_r, refs[seed])}")
     for seed in control_seeds:
-        ref = refs.get(seed) or session.reference_readings(cfg, mix, seed,
-                                                           dev)
-        ctl = session.reference_readings(cfg, mix, seed, dev,
+        ref = refs.get(seed) or session.reference_readings(fam, cfg, mix,
+                                                           seed, dev)
+        ctl = session.reference_readings(fam, cfg, mix, seed, dev,
                                          prec=Fp8Products())
         out["control"][seed] = compare.gaps(ctl, ref)
         log(f"control seed {seed}: {out['control'][seed]}")
         log(f"  widest grad leaves: {compare.worst_leaves(ctl, ref)}")
         for f in faults:
-            bad = session.reference_readings(cfg, mix, seed, dev, fault=f)
+            bad = session.reference_readings(fam, cfg, mix, seed, dev,
+                                             fault=f)
             out["faults"][f][seed] = compare.gaps(bad, ref)
             log(f"fault {f} seed {seed}: {out['faults'][f][seed]}")
     summary = {"lower": {k: max(g[k] for g in out["program"].values())

@@ -25,7 +25,6 @@ import torch
 from fedbench.harness import compare, spec as S, trace as T, weights
 from fedbench.harness.program import Program, hook_seed
 from fedbench.reference import fl_round
-from fedbench.reference.schema import dims, schema
 
 FORBIDDEN = ("jax", "jaxlib", "flax", "repro")
 # a kernel's name in the breakdown is cut to this many characters
@@ -91,7 +90,7 @@ def program_readings(prog: Program, before: Dict[str, torch.Tensor]):
                             prog.params())
 
 
-def reference_readings(cfg, mix, seed, dev, prec=None, fault=None):
+def reference_readings(family, cfg, mix, seed, dev, prec=None, fault=None):
     """The plain reference's first round of a run seeded `seed`, from the
     weights the benchmark makes again from the seed. Its float32
     products run in float32, not TF32."""
@@ -100,8 +99,8 @@ def reference_readings(cfg, mix, seed, dev, prec=None, fault=None):
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     try:
-        stored = weights.make(cfg, seed, dev)
-        out = fl_round.run_round(cfg, mix, stored, hook_seed(seed),
+        stored = weights.make(family, cfg, seed, dev)
+        out = fl_round.run_round(family, cfg, mix, stored, hook_seed(seed),
                                  prec=prec, fault=fault)
         r = compare.readings(out["mean_loss"], out["mu"], stored,
                              out["params"])
@@ -121,6 +120,7 @@ def run(cell_name: str, seed: int, seconds: float, trace: bool, *,
     spec = S.benchmark(root)
     cell = S.cell(spec, cell_name)
     cfg = S.config(spec, cell["config"], root)
+    fam = S.family(cfg, bench_dir)
     mix = S.traffic(cell["traffic"], bench_dir)
     lim = S.limits(cell_name, bench_dir)
     e2e = S.end_to_end(spec, cell_name)
@@ -132,9 +132,9 @@ def run(cell_name: str, seed: int, seconds: float, trace: bool, *,
         _sync(dev)
         marks.append((name, time.perf_counter()))
 
-    w0 = weights.make(cfg, seed, dev)
+    w0 = weights.make(fam, cfg, seed, dev)
     mark("weights")
-    prog = Program(cfg, mix, seed, w0, device=dev)
+    prog = Program(fam, cfg, mix, seed, w0, device=dev)
     mark("hooks")
     prog.run_round()
     mark("round 1")
@@ -177,28 +177,20 @@ def run(cell_name: str, seed: int, seconds: float, trace: bool, *,
         for m in e2e:
             result_metrics[m["name"]] = _metric(values[m["name"]], m["unit"])
     else:
-        from torch.profiler import record_function
         tr = T.profile_rounds(prog.run_round, TRACE_ROUNDS, dev)
         rounds = TRACE_ROUNDS
-        hooks = prog.hooks
-        draw = hooks._next_batches
-
-        def traced_draw():
-            with record_function("fedbench.data_draw"):
-                return draw()
-
-        hooks._next_batches = traced_draw
         labelled = T.profile_rounds(prog.run_round, 1, dev, host=True)
-        hooks._next_batches = draw
         peak_window = _max_mem(dev)
         intervals = T.busy_intervals(tr["device"])
         busy_s = sum(b - a for a, b in intervals) / 1e6
-        ctx = {"cfg": cfg, "mix": mix, "dims": dims(cfg),
-               "device": tr["device"], "window_s": tr["window_s"],
-               "busy_s": busy_s, "rounds": rounds,
+        ctx = {"cfg": cfg, "mix": mix, "family": fam,
+               "dims": fam.dims(cfg), "device": tr["device"],
+               "window_s": tr["window_s"], "busy_s": busy_s,
+               "rounds": rounds,
                "peaks": (S.peaks(torch.cuda.get_device_name(dev), bench_dir)
                          if dev.type == "cuda" else None),
-               "leaf_sizes": [math.prod(s) for _, s, *_ in schema(cfg)]}
+               "leaf_sizes": [math.prod(s)
+                              for _, s, *_ in fam.schema(cfg)]}
         for m in layer:
             v = S.reader(m["name"], bench_dir)(ctx)
             if v is not None:
@@ -224,7 +216,7 @@ def run(cell_name: str, seed: int, seconds: float, trace: bool, *,
     free_device(dev)
 
     t_ref = time.perf_counter()
-    ref_r = reference_readings(cfg, mix, seed, dev)
+    ref_r = reference_readings(fam, cfg, mix, seed, dev)
     print(f"reference: {time.perf_counter() - t_ref:.3f} s", file=err)
     gap = compare.gaps(prog_r, ref_r)
     correct = compare.judge(gap, lim)

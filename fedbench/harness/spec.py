@@ -1,17 +1,20 @@
 """Find what a cell needs by the names in `BENCHMARK.json`.
 
 A cell names a configuration (its `file` under `configs`) and a traffic
-mix (`fedbench/traffic/<mix>.json`); its correctness limits lie in
-`fedbench/limits/<cell>.json`; a per-layer metric's reader is
+mix (`fedbench/traffic/<mix>.json`); a configuration names its model
+family (`fedbench/families/<family>.py`); a cell's correctness limits lie
+in `fedbench/limits/<cell>.json`; a per-layer metric's reader is
 `fedbench/metrics/<metric>.py`; the card's published peaks are
 `fedbench/peaks/<card name, spaces as _>.json`. A new cell, mix,
-configuration or metric is new files and new entries, never an edit.
+configuration, family or metric is new files and new entries, never an
+edit.
 """
 from __future__ import annotations
 
 import importlib.util
 import json
 from pathlib import Path
+from types import ModuleType
 from typing import Callable, List, Optional
 
 BENCH_DIR = Path(__file__).resolve().parents[1]
@@ -61,17 +64,34 @@ def peaks(device_kind: str, bench_dir: Path = BENCH_DIR) -> Optional[dict]:
     return json.loads(path.read_text()) if path.is_file() else None
 
 
+def _module(path: Path, name: str) -> ModuleType:
+    mod_spec = importlib.util.spec_from_file_location(name, path)
+    mod = importlib.util.module_from_spec(mod_spec)
+    mod_spec.loader.exec_module(mod)
+    return mod
+
+
 def reader(metric: str, bench_dir: Path = BENCH_DIR) -> Callable:
     """The `read(ctx)` function of a per-layer metric's own file."""
     path = bench_dir / "metrics" / f"{metric}.py"
     if not path.is_file():
         raise SpecError(f"no reader for the metric {metric!r} at "
                         f"{path.relative_to(ROOT)}")
-    mod_spec = importlib.util.spec_from_file_location(
-        f"fedbench_metric_{metric.replace('.', '_')}", path)
-    mod = importlib.util.module_from_spec(mod_spec)
-    mod_spec.loader.exec_module(mod)
-    return mod.read
+    return _module(path, f"fedbench_metric_{metric.replace('.', '_')}").read
+
+
+def family(cfg: dict, bench_dir: Path = BENCH_DIR) -> ModuleType:
+    """The module of the model family that a configuration names under
+    `"family"`: `dims`, `schema`, `INITS`, `loss`, `model_flops` and
+    `port_config` (see `fedbench/families/dense.py`)."""
+    name = cfg.get("family")
+    if name is None:
+        raise SpecError(f"the configuration {cfg.get('name')!r} names no "
+                        f"family")
+    path = bench_dir / "families" / f"{name}.py"
+    if not path.is_file():
+        raise SpecError(f"no family {name!r}: {path} is missing")
+    return _module(path, f"fedbench_family_{name.replace('.', '_')}")
 
 
 def end_to_end(spec: dict, cell_name: str) -> List[dict]:

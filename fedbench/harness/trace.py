@@ -6,8 +6,9 @@ CUDA activity alone: recording every host op as well stretched a
 24-layer mamba2 round's host time by half and more, and with it the idle
 share. One more round is traced with the host's events too, to say what
 the host was doing in each idle gap: the innermost host event running at
-the gap's middle (an aten op, or one of the benchmark's spans around the
-calls into the program: `fedbench.round`, `fedbench.data_draw`).
+the gap's middle (an aten op, one of the program's own spans, such as
+`fl.data_draw`, or the benchmark's `fedbench.round` around each call into
+the program).
 """
 from __future__ import annotations
 

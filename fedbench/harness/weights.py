@@ -5,9 +5,9 @@ device gives the same weights, so the reference makes them again after
 the window instead of keeping a copy.
 
 "normal" leaves are drawn with the standard deviation 1/sqrt(fan_in) of
-the products they enter, "embed" with 0.02; the Mamba2 per-head scalars
-follow its published initialisation: A_log = log U(lo, hi), and dt_bias
-the inverse softplus of a dt drawn log-uniform in [dt_min, dt_max].
+the products they enter, "embed" with 0.02; any other init is the
+family's own (its `INITS`: Mamba2's per-head scalars follow its published
+initialisation).
 """
 from __future__ import annotations
 
@@ -16,16 +16,14 @@ from typing import Dict
 
 import torch
 
-from fedbench.reference.schema import dims, schema
 
-
-def make(cfg: dict, seed: int, device) -> Dict[str, torch.Tensor]:
-    """flat key -> tensor of the configuration's schema."""
+def make(family, cfg: dict, seed: int, device) -> Dict[str, torch.Tensor]:
+    """flat key -> tensor of the schema of the configuration's family."""
     dev = torch.device(device)
     gen = torch.Generator(device=dev).manual_seed(int(seed))
-    z = dims(cfg)
+    z = family.dims(cfg)
     out = {}
-    for key, shape, dtype, init, fan_in in schema(cfg):
+    for key, shape, dtype, init, fan_in in family.schema(cfg):
         if init == "ones":
             x = torch.ones(shape, device=dev)
         elif init == "zeros":
@@ -35,15 +33,8 @@ def make(cfg: dict, seed: int, device) -> Dict[str, torch.Tensor]:
         elif init == "normal":
             x = torch.randn(shape, generator=gen, device=dev) \
                 / math.sqrt(fan_in)
-        elif init == "a_log":
-            lo, hi = z["a_range"]
-            x = torch.log(torch.rand(shape, generator=gen, device=dev)
-                          * (hi - lo) + lo)
-        elif init == "dt_bias":
-            u = torch.rand(shape, generator=gen, device=dev)
-            lo, hi = math.log(z["dt_min"]), math.log(z["dt_max"])
-            dt = torch.exp(u * (hi - lo) + lo)
-            x = dt + torch.log(-torch.expm1(-dt))
+        elif init in family.INITS:
+            x = family.INITS[init](shape, gen, dev, z)
         else:
             raise ValueError(f"{key}: unknown init {init!r}")
         out[key] = x.to(dtype)

@@ -5,11 +5,12 @@ needs, from shapes alone, and its least time on a card's published peaks.
 `repro_torch/launch/roofline.py`, frozen here so that a change to the
 program cannot move the yardstick (the ssd's bytes and the codec's work
 are copied into their metrics' own readers). Each input byte is counted
-read once and each output byte written once.
+read once and each output byte written once. A family's `model_flops`
+(`fedbench/families/`) is built from these.
 """
 from __future__ import annotations
 
-from fedbench.reference.schema import dims, matmul_params
+import math
 
 # the tensor-core ssd kernel cuts the sequence into pieces of this many
 # rows, whatever chunk the model names
@@ -42,23 +43,22 @@ def bound_s(flops, nbytes, flops_peak, bytes_peak):
     return max(flops / flops_peak, nbytes / bytes_peak)
 
 
+def layer_dims(z: dict, kind: str):
+    """The sizes of a family's layers of `kind` in its `dims` (the metric
+    readers' `ctx["dims"]`): `z[kind]` for a family of several kinds, `z`
+    itself for a family of that one kind, None for a family without."""
+    if kind in z:
+        return z[kind]
+    return z if z.get("kind") == kind else None
+
+
 def round_tokens(mix: dict) -> int:
     return mix["clients"] * mix["local_steps"] * mix["batch"] * mix["seq"]
 
 
-def model_flops(cfg: dict, mix: dict) -> float:
-    """The model FLOPs of one round: 6 x the parameters of the dense
-    products x the tokens trained (forward, and the backward's two
-    products), plus 3 x the sequence mixer's own forward (causal
-    attention over its pairs; the SSD scan at the kernel's 128-row
-    pieces). Remat's recompute and the embedding gather are not counted."""
-    z = dims(cfg)
-    steps = mix["clients"] * mix["local_steps"]
-    b, s = mix["batch"], mix["seq"]
-    flops = 6.0 * matmul_params(cfg) * round_tokens(mix)
-    if z["kind"] == "attn":
-        mixer, _ = attention_work(b, s, s, z["n"], z["h"], 2)
-    else:
-        mixer = ssd_flops(b, s, z["nh"], z["p"], z["n"],
-                          min(SSD_PIECE, z["chunk"]))
-    return flops + 3.0 * mixer * z["layers"] * steps
+def product_params(d, v, entries, counted) -> int:
+    """Parameters that enter a matrix product of the forward: the output
+    head's d x v (the tied table counts once, as the head) and every leaf
+    of the schema `entries` that `counted(key, init)` keeps."""
+    return d * v + sum(math.prod(shape) for key, shape, _, init, _ in entries
+                       if counted(key, init))

@@ -2,9 +2,9 @@
 their roofline, from the device trace.
 
 Every launch in a cell runs at the cell's shape (batch x seq, the
-configuration's heads and head dim, causal). A launch's least time is the
-larger of its causal-pair FLOPs over the bf16 (or fp32) peak and its
-Q+K+V+O bytes, each once, over the HBM peak. The share is the launches'
+configuration's attention heads and head dim, causal). A launch's least
+time is the larger of its causal-pair FLOPs over the bf16 (or fp32) peak
+and its Q+K+V+O bytes, each once, over the HBM peak. The share is the launches'
 least time over their summed device time. Nothing to read without a
 launch of these kernels or without the card in the peak table.
 """
@@ -17,8 +17,9 @@ KERNELS = re.compile(r"\bflash_fwd(_sm90)?_kernel\b")
 
 def read(ctx):
     times = [d for name, _, d in ctx["device"] if KERNELS.search(name)]
-    z, mix, peaks = ctx["dims"], ctx["mix"], ctx["peaks"]
-    if not times or peaks is None or z["kind"] != "attn":
+    z = work.layer_dims(ctx["dims"], "attn")
+    mix, peaks = ctx["mix"], ctx["peaks"]
+    if not times or peaks is None or z is None:
         return None
     bf16 = ctx["cfg"]["torch_dtype"] == "bfloat16"
     flops, nbytes = work.attention_work(

@@ -23,8 +23,9 @@ def ssd_bytes(b, s, h, p, g, n, elem_bytes):
 
 
 def read(ctx):
-    z, mix, peaks = ctx["dims"], ctx["mix"], ctx["peaks"]
-    if peaks is None or z["kind"] != "mamba2":
+    z = work.layer_dims(ctx["dims"], "mamba2")
+    mix, peaks = ctx["mix"], ctx["peaks"]
+    if peaks is None or z is None:
         return None
     bf16 = ctx["cfg"]["torch_dtype"] == "bfloat16"
     b, s = mix["batch"], mix["seq"]

@@ -20,7 +20,6 @@ import numpy as np
 import torch
 
 from fedbench.reference import model as M
-from fedbench.reference.schema import dims, schema
 
 BLOCK = 2048
 MOMENTUM = 0.9
@@ -66,7 +65,8 @@ def codec_roundtrip(x: torch.Tensor) -> torch.Tensor:
     return (q.float() * scale).reshape(-1)[:n].reshape(x.shape)
 
 
-def _local_train(cfg, stored, mu, batches, lr, prec, fault, device):
+def _local_train(family, cfg, stored, mu, batches, lr, prec, fault,
+                 device):
     """One client's local steps from `stored`. Returns its stored
     parameters, its momentum and its step losses."""
     p = {k: v.clone() for k, v in stored.items()}
@@ -81,7 +81,7 @@ def _local_train(cfg, stored, mu, batches, lr, prec, fault, device):
             half = tokens.shape[0] // 2
             tokens, labels = tokens[:half], labels[:half]
         work = {k: v.float().requires_grad_(True) for k, v in p.items()}
-        loss = M.loss(work, cfg, tokens, labels, prec)
+        loss = family.loss(work, cfg, tokens, labels, prec)
         grads = torch.autograd.grad(loss, list(work.values()))
         with torch.no_grad():
             for (k, w), g in zip(work.items(), grads):
@@ -98,24 +98,27 @@ def zero_momentum(stored: Dict[str, torch.Tensor]):
             for k, v in stored.items()}
 
 
-def run_round(cfg: dict, mix: dict, stored: Dict[str, torch.Tensor],
-              seed: int, prec: Optional[M.Precision] = None,
+def run_round(family, cfg: dict, mix: dict,
+              stored: Dict[str, torch.Tensor], seed: int,
+              prec: Optional[M.Precision] = None,
               fault: Optional[str] = None) -> dict:
     """The first round of a run seeded `seed` from the stored parameters
-    `stored` (flat key -> tensor in its schema dtype; left unchanged).
+    `stored` (flat key -> tensor in its schema dtype; left unchanged), the
+    loss that of the configuration's `family` (`fedbench/families/`).
     Returns the round's mean loss, each client's momentum after its steps
     and the stored parameters after the fold."""
     if fault is not None and fault not in FAULTS:
         raise ValueError(f"unknown fault {fault!r}; known: {FAULTS}")
     prec = prec or M.Precision()
-    if {k for k, *_ in schema(cfg)} != set(stored):
+    if {k for k, *_ in family.schema(cfg)} != set(stored):
         raise ValueError("stored parameters do not match the schema")
     device = next(iter(stored.values())).device
     n = mix["clients"]
     base = np.array([float(w) for w in mix["weights"]])
     w = torch.tensor(base, dtype=torch.float32)
     wn = w / torch.clamp(torch.sum(w), min=1e-12)
-    streams = [token_stream(dims(cfg)["v"], mix["batch"], mix["seq"],
+    vocab = family.dims(cfg)["v"]
+    streams = [token_stream(vocab, mix["batch"], mix["seq"],
                             seed + STREAM_STRIDE * i) for i in range(n)]
     batches = [[next(s) for _ in range(mix["local_steps"])] for s in streams]
     avg: Dict[str, torch.Tensor] = {}
@@ -123,8 +126,8 @@ def run_round(cfg: dict, mix: dict, stored: Dict[str, torch.Tensor],
     losses = []
     for i in range(n):
         new_p, mu, step_losses = _local_train(
-            cfg, stored, zero_momentum(stored), batches[i], mix["lr"], prec,
-            fault, device)
+            family, cfg, stored, zero_momentum(stored), batches[i],
+            mix["lr"], prec, fault, device)
         mus.append(mu)
         losses.append(float(np.mean(step_losses)))
         if fault == "client_dropped" and i == n - 1:

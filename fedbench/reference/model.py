@@ -1,14 +1,16 @@
-"""Plain PyTorch reference of the benchmark's language models: the loss of
-a batch, in float32, with no kernel of the program.
+"""Plain PyTorch pieces of the benchmark's language models, in float32,
+with no kernel of the program; a family (`fedbench/families/`) builds its
+loss of a batch from them.
 
-It follows the published layer equations as the port states them:
+They follow the published layer equations as the port states them:
 RMSNorm before each mixer and MLP, residual adds; attention with RoPE
 (half-split rotation) and a causal softmax over every earlier position;
 a SwiGLU MLP; the Mamba2 mixer (z, x, B, C and dt projections, a
 depthwise causal conv with bias and SiLU over x|B|C, softplus dt with a
 bias, A = -exp(A_log), the chunked SSD scan, the D skip, a gated RMSNorm,
-the output projection); a final RMSNorm, the output head (the embedding
-table's transpose where tied), and the mean token cross-entropy.
+the output projection); and `lm_loss`: the embedding, the layers, a final
+RMSNorm, the output head (the embedding table's transpose where tied),
+and the mean token cross-entropy.
 
 Every layer is checkpointed (its activations recomputed in the backward),
 which changes no number and keeps the float32 round of the deepest cell
@@ -22,8 +24,6 @@ import math
 import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
-
-from fedbench.reference.schema import dims
 
 
 class Precision:
@@ -161,32 +161,28 @@ def mamba2(p, x, z, prec):
     return _proj("bsi,id->bsd", y, p["wo"], prec)
 
 
-def _layer(z, prec):
-    def run(x, *leaves):
-        p = dict(zip(run.names, leaves))
-        h = rms_norm(x, p["norm1/scale"], z["eps"])
-        mix = {k[4:]: v for k, v in p.items() if k.startswith("mix/")}
-        if z["kind"] == "attn":
-            x = x + attention(mix, h, z, prec)
-            h = rms_norm(x, p["norm2/scale"], z["eps"])
-            mlp = {k[4:]: v for k, v in p.items() if k.startswith("mlp/")}
-            return x + swiglu(mlp, h, prec)
-        return x + mamba2(mix, h, z, prec)
-    return run
+def group(p, name):
+    """The leaves of `p` under `name/`, with that prefix taken off."""
+    cut = len(name) + 1
+    return {k[cut:]: v for k, v in p.items() if k.startswith(name + "/")}
 
 
-def loss(params, cfg, tokens, labels, prec=Precision()):
+def lm_loss(params, z, tokens, labels, prec, block, repeats):
     """Mean token cross-entropy of one batch. `params`: flat key ->
-    float32 tensor (the schema's keys); tokens, labels (B,S) int64."""
-    z = dims(cfg)
+    float32 tensor (the family's schema); tokens, labels (B,S) int64.
+    `block`: [(prefix, layer)] in the order the block runs them, each
+    `layer(p, x) -> x` given the leaves under its prefix (stacked over the
+    block's `repeats`) at one repeat, the prefix taken off."""
     x = params["embed/table"][tokens]
-    blk = f"blocks/00_{z['kind']}/"
-    names = sorted(k[len(blk):] for k in params if k.startswith(blk))
-    layer = _layer(z, prec)
-    layer.names = names
-    for i in range(z["layers"]):
-        leaves = [params[blk + k][i] for k in names]
-        x = checkpoint(layer, x, *leaves, use_reentrant=False)
+    layers = []
+    for prefix, layer in block:
+        names = sorted(k[len(prefix):] for k in params
+                       if k.startswith(prefix))
+        layers.append((prefix, names, _checkpointed(layer, names)))
+    for i in range(repeats):
+        for prefix, names, run in layers:
+            leaves = [params[prefix + k][i] for k in names]
+            x = checkpoint(run, x, *leaves, use_reentrant=False)
     x = rms_norm(x, params["final_norm/scale"], z["eps"])
     head = (params["embed/table"].T if z["tied"]
             else params["lm_head/table"])
@@ -194,3 +190,9 @@ def loss(params, cfg, tokens, labels, prec=Precision()):
     logz = torch.logsumexp(logits, dim=-1)
     gold = torch.gather(logits, -1, labels[..., None])[..., 0]
     return torch.mean(logz - gold)
+
+
+def _checkpointed(layer, names):
+    def run(x, *leaves):
+        return layer(dict(zip(names, leaves)), x)
+    return run

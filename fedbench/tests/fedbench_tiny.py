@@ -41,17 +41,20 @@ def tiny_mix(arm: str = "int8", batch: int = 2, seq: int = 16) -> dict:
 
 
 def lay_out(tmp: Path, kind: str, arm: str = "int8",
-            dtype: str = "float32", limits=None) -> Path:
+            dtype: str = "float32", limits=None, config=None,
+            families: Path = BENCH / "families") -> Path:
     """A benchmark root under `tmp` with one cell, "w", of a tiny
-    configuration "c" under the mix "t"; the metric readers are the
-    benchmark's own."""
+    configuration "c" (`config`, or the tiny one of `kind`) under the mix
+    "t"; the metric readers are the benchmark's own, and its model
+    families are those of the directory `families`."""
     tmp = Path(tmp)
     bench = tmp / "fedbench"
     for sub in ("traffic", "limits", "configs"):
         (bench / sub).mkdir(parents=True, exist_ok=True)
     (bench / "metrics").symlink_to(BENCH / "metrics")
+    (bench / "families").symlink_to(families)
     (bench / "configs" / "c.json").write_text(
-        json.dumps(tiny_config(kind, dtype)))
+        json.dumps(config or tiny_config(kind, dtype)))
     (bench / "traffic" / "t.json").write_text(json.dumps(tiny_mix(arm)))
     (bench / "limits" / "w.json").write_text(json.dumps(limits or TIGHT))
     real = json.loads((ROOT / "BENCHMARK.json").read_text())

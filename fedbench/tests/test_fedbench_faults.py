@@ -83,14 +83,27 @@ FAULTS = {"unchanged": _unchanged, "half_batch": _half_batch,
           "labels_altered": _labels_altered, "codec_altered": _codec_altered}
 
 
-@pytest.mark.parametrize("kind", ["attn", "mamba2"])
-@pytest.mark.parametrize("fault", [None] + sorted(FAULTS))
-def test_fault_is_caught(tmp_path, monkeypatch, kind, fault):
+def _run(tmp_path, monkeypatch, kind, arm, fault):
     torch.manual_seed(0)
     if fault is not None:
         FAULTS[fault](monkeypatch)
-    root = tiny.lay_out(tmp_path, kind, "int8")
+    root = tiny.lay_out(tmp_path, kind, arm)
     rc, line, _ = tiny.run_cell(root)
     assert rc == 0
     gaps = {k: v["value"] for k, v in line["compared"].items()}
     assert line["correct"] is (fault is None), gaps
+
+
+@pytest.mark.parametrize("kind", ["attn", "mamba2"])
+@pytest.mark.parametrize("fault", [None] + sorted(FAULTS))
+def test_fault_is_caught(tmp_path, monkeypatch, kind, fault):
+    _run(tmp_path, monkeypatch, kind, "int8", fault)
+
+
+@pytest.mark.parametrize("kind", ["attn", "mamba2"])
+@pytest.mark.parametrize("fault", [None] + sorted(set(FAULTS)
+                                                  - {"codec_altered"}))
+def test_fault_is_caught_on_the_fp32_arm(tmp_path, monkeypatch, kind, fault):
+    """The fp32 arm sends its updates without the codec, so it has every
+    fault but the codec's."""
+    _run(tmp_path, monkeypatch, kind, "fp32", fault)

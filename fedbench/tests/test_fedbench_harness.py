@@ -20,7 +20,7 @@ CONTRACT_KEYS = ["correct", "attempted", "failed", "metrics", "device"]
 def test_every_name_of_benchmark_json_is_found():
     spec = S.benchmark()
     for w in spec["workloads"]:
-        S.config(spec, w["config"])
+        S.family(S.config(spec, w["config"]))
         S.traffic(w["traffic"])
         S.limits(w["name"])
         assert S.end_to_end(spec, w["name"])
@@ -150,7 +150,7 @@ def test_trace_reading(tmp_path):
          "dur": 10},
         {"ph": "X", "cat": "user_annotation", "name": "fedbench.round",
          "ts": 0, "dur": 100},
-        {"ph": "X", "cat": "user_annotation", "name": "fedbench.data_draw",
+        {"ph": "X", "cat": "user_annotation", "name": "fl.data_draw",
          "ts": 16, "dur": 20},
         {"ph": "X", "cat": "cpu_op", "name": "aten::mm", "ts": 0,
          "dur": 3}]
@@ -160,8 +160,7 @@ def test_trace_reading(tmp_path):
     assert len(tr["device"]) == 3 and len(tr["host"]) == 3
     iv = T.busy_intervals(tr["device"])
     assert iv == [[0.0, 15.0], [40.0, 50.0]]
-    assert T.idle_by_host(iv, tr["host"]) == [("fedbench.data_draw",
-                                               25e-6)]
+    assert T.idle_by_host(iv, tr["host"]) == [("fl.data_draw", 25e-6)]
     ops = dict(T.device_ops(tr["device"]))
     assert ops == {"k1": 10e-6, "k2": 10e-6, "copy": 10e-6}
 
@@ -170,4 +169,5 @@ def test_a_mix_past_the_sliding_window_is_refused():
     from fedbench.harness.program import Program
     cfg = dict(tiny.tiny_config("attn"), sliding_window=8)
     with pytest.raises(ValueError, match="sliding window"):
-        Program(cfg, tiny.tiny_mix(seq=16), 1, {}, device="cpu")
+        Program(S.family(cfg), cfg, tiny.tiny_mix(seq=16), 1, {},
+                device="cpu")

@@ -9,10 +9,9 @@ import torch
 import fedbench_tiny as tiny
 
 from fedbench.harness import compare, session, weights
-from fedbench.harness.program import Program, port_config
+from fedbench.harness.program import Program
 from fedbench.harness import spec as S
 from fedbench.reference import fl_round, model as M
-from fedbench.reference.schema import schema
 
 
 def test_token_stream_is_the_ports():
@@ -53,9 +52,10 @@ def test_schema_is_the_ports_at_full_size():
     spec = S.benchmark()
     for c in spec["configs"]:
         cfg = S.config(spec, c["name"])
-        mine = {k: (tuple(s), d) for k, s, d, *_ in schema(cfg)}
+        fam = S.family(cfg)
+        mine = {k: (tuple(s), d) for k, s, d, *_ in fam.schema(cfg)}
         port = {k: (tuple(s), d)
-                for k, (s, d) in lm.param_shapes(port_config(cfg))}
+                for k, (s, d) in lm.param_shapes(fam.port_config(cfg))}
         assert mine == port, c["name"]
 
 
@@ -65,12 +65,14 @@ def test_round_agrees_with_the_port(kind, arm):
     """fp32 at a tiny width: the port's first round and the reference's
     agree to float32 rounding."""
     cfg, mix = tiny.tiny_config(kind), tiny.tiny_mix(arm)
+    fam = S.family(cfg)
     seed = 2 ** 31 + 11
-    w0 = weights.make(cfg, seed, "cpu")
-    prog = Program(cfg, mix, seed, w0, device="cpu")
+    w0 = weights.make(fam, cfg, seed, "cpu")
+    prog = Program(fam, cfg, mix, seed, w0, device="cpu")
     prog.run_round()
     got = session.program_readings(prog, w0)
-    ref = session.reference_readings(cfg, mix, seed, torch.device("cpu"))
+    ref = session.reference_readings(fam, cfg, mix, seed,
+                                     torch.device("cpu"))
     gap = compare.gaps(got, ref)
     assert compare.judge(gap, tiny.TIGHT), gap
     assert gap["loss"] < 1e-6 and gap["grad"] < 1e-4, gap
@@ -81,10 +83,11 @@ def test_the_control_fails(kind):
     """The reference with its products in fp8 put in the program's place
     fails the limits that a sound round passes, by `grad` or `update`."""
     cfg, mix = tiny.tiny_config(kind), tiny.tiny_mix("int8")
+    fam = S.family(cfg)
     seed = 2 ** 31 + 13
     dev = torch.device("cpu")
-    ref = session.reference_readings(cfg, mix, seed, dev)
-    ctl = session.reference_readings(cfg, mix, seed, dev,
+    ref = session.reference_readings(fam, cfg, mix, seed, dev)
+    ctl = session.reference_readings(fam, cfg, mix, seed, dev,
                                      prec=M.Fp8Products())
     gap = compare.gaps(ctl, ref)
     assert not compare.judge(gap, tiny.TIGHT), gap

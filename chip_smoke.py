@@ -22,7 +22,13 @@ payload-only stub of the same parameter tree, and a counted round
 (`launch.roofline.WorkCounter`) must carry each kernel's own work once
 a launch; one round of each is then profiled (`torch.profiler`: the
 device's busy share and its ten longest ops; with host activity, its
-device time by the aten op and shapes that launched it). Then, for phi3
+device time by the aten op and shapes that launched it). The
+benchmark's cell `granite-h-micro-d20.int8.b1x4096` runs the same way as
+a path of its own (`phase_cell_path`): the port config that fedbench
+builds for it (granite-4.0-h-micro, 20 layers) at its batch of 1 and
+sequence of 4096, its flash at (1, 4096, 32, 64) and scale 1/64 and its
+ssd forward and backward at (1, 4096) held to their plain versions and
+timed in kernels-line rows of their own. Then, for phi3
 and mamba2,
 the real-training Table I row
 (`repro_torch.benchmarks.table1.run_real_rows`, MNIST's market):
@@ -42,9 +48,10 @@ from its counted work at the card's measured peaks, a sweep of 8 cells
 (`repro_torch.sweep`) over a pool of spawned workers must equal its
 serial run within `SWEEP_LIMIT_S`, and the port's forecast_quality and
 forecast_prewarm benchmarks must pass their own asserts. Then it checks a SMOKE-size run of
-each of the registry's ten models on the card against the same run on
-the CPU (nine through one FL round of each arm; llama-3.2-vision-90b,
-whose cross-attention layers need a `cond` batch the hooks do not draw,
+each of the registry's ten models and of the port's own
+granite-4.0-h-micro on the card against the same run on the CPU (ten
+through one FL round of each arm; llama-3.2-vision-90b, whose
+cross-attention layers need a `cond` batch the hooks do not draw,
 through one fp32 loss and gradient), and times each
 kernel beside its plain version, its bound and the PyTorch library call
 that computes the same function where there is one (a yardstick only;
@@ -164,6 +171,17 @@ MAIN_B, MAIN_S, MAIN_N, MAIN_H = 4, 1024, 32, 96
 # B, S, N, H; its row in the kernels line
 FLASH_GRANITE = (4, 1024, 24, 64)
 FLASH_GRANITE_ROW = "flash_attention_fwd@granite-moe-3b-a800m"
+# the benchmark's granite-4.0-h-micro cell (fedbench), run as its own
+# path at the port config the harness builds (20 layers, batch 1, seq
+# 4096): flash at its NoPE attention layer (B, S, N, H, 32 query heads,
+# kv expanded from 8) at its scale 1/64, and ssd at its Mamba2 layer (b,
+# s, heads, head dim, groups, state, chunk); each kernel's row in the
+# kernels line ends in CELL_ROW
+CELL = "granite-h-micro-d20.int8.b1x4096"
+CELL_ROW = "@granite-4.0-h-micro"
+FLASH_CELL = (1, 4096, 32, 64)
+FLASH_CELL_SCALE = 1 / 64
+SSD_CELL = (1, 4096, 64, 64, 1, 128, 256)
 CLIENTS = ("client_0", "client_1")
 LR = 5e-3                           # the hooks' default
 
@@ -203,9 +221,21 @@ def paths():
     return [(arch, *MAIN_PATHS[arch], MAY_STAY[arch]) for arch in MAY_STAY]
 
 
+def cell_path():
+    """The benchmark cell's port config, as `fedbench/run.py` builds it,
+    and its traffic mix."""
+    from fedbench.harness import spec as S
+    spec = S.benchmark(S.ROOT)
+    cell = S.cell(spec, CELL)
+    cfg = S.config(spec, cell["config"], S.ROOT)
+    return (S.family(cfg, S.BENCH_DIR).port_config(cfg),
+            S.traffic(cell["traffic"], S.BENCH_DIR))
+
+
 def _check_shapes():
-    """Each kernel's checked and timed shape is its main path's."""
-    from repro_torch.benchmarks.table1 import MAIN_PATHS
+    """Each kernel's checked and timed shape is its main path's, and the
+    cell path's."""
+    from repro_torch.benchmarks.table1 import LOCAL_STEPS, MAIN_PATHS
     from repro_torch.configs import get_config
     main = {arch: v[1:] for arch, v in MAIN_PATHS.items()}
     phi3 = get_config("phi3-mini-3.8b")
@@ -217,6 +247,19 @@ def _check_shapes():
            and SSD_MAIN[:2] == main["mamba2-1.3b"]
            and RGLRU_MAIN[:2] == FLASH_RG[:2] == main["recurrentgemma-2b"],
            f"a kernel shape is not its main path's: {MAIN_PATHS}")
+    cfg, mix = cell_path()
+    ssm = cfg.ssm
+    _check((mix["clients"], mix["local_steps"], mix["lr"])
+           == (len(CLIENTS), LOCAL_STEPS, LR)
+           and FLASH_CELL == (mix["batch"], mix["seq"], cfg.num_heads,
+                              cfg.resolved_head_dim)
+           and FLASH_CELL_SCALE == cfg.attention_scale
+           and cfg.position_embedding == "none"
+           and SSD_CELL == (mix["batch"], mix["seq"],
+                            ssm.expand * cfg.d_model // ssm.head_dim,
+                            ssm.head_dim, ssm.n_groups, ssm.d_state,
+                            ssm.chunk_size),
+           f"a kernel shape is not {CELL}'s: {cfg}, {mix}")
 
 
 def _fail(msg):
@@ -388,27 +431,29 @@ def _rglru_inputs(gen, B, S, W):
             _randn(gen, B, S, W, scale=0.5))
 
 
-def _check_flash_bf16(fa, gen, B, S, N, H, window):
+def _check_flash_bf16(fa, gen, B, S, N, H, window, scale=None):
     """The bf16 kernel against the plain version in fp32 on the same
-    bf16 inputs: the kernel computes in fp32 and rounds its output to
-    bf16 once, so each output lies within half a bf16 ulp (at most 2^-8
-    of itself) of the fp32 result, plus fp32 rounding. Returns max |err|."""
+    bf16 inputs, the scores scaled by `scale` (None: 1/sqrt(H)): the
+    kernel computes in fp32 and rounds its output to bf16 once, so each
+    output lies within half a bf16 ulp (at most 2^-8 of itself) of the
+    fp32 result, plus fp32 rounding. Returns max |err|."""
     q, k, v = (_randn(gen, B, S, N, H, dtype=torch.bfloat16)
                for _ in range(3))
-    out = fa.flash_attention_fwd(q, k, v, window=window)
+    out = fa.flash_attention_fwd(q, k, v, window=window, scale=scale)
     torch.cuda.synchronize()
     _check(out.dtype == torch.bfloat16, f"flash bf16 gave {out.dtype}")
     want = fa.flash_attention_plain(q.float(), k.float(), v.float(),
-                                    window=window)
+                                    window=window, scale=scale)
     err = (out.float() - want).abs()
     top = want.abs().max().item()
     bar = 2.0 ** -8 * want.abs() + 1e-5 * top
     worst = (err / bar).max().item()
     _check(bool((err <= bar).all()),
-           f"flash bf16 {(B, S, N, H)} window={window}: max |err| "
-           f"{err.max().item()}, {worst} of the bar, against the fp32 "
+           f"flash bf16 {(B, S, N, H)} window={window} scale={scale}: max "
+           f"|err| {err.max().item()}, {worst} of the bar, against the fp32 "
            f"plain version")
-    print(f"[kernels] flash bf16 {(B, S, N, H)} window={window}: max |err| "
+    print(f"[kernels] flash bf16 {(B, S, N, H)} window={window} "
+          f"scale={scale}: max |err| "
           f"{err.max().item():.3e} against the fp32 plain version, "
           f"{err.max().item() / top:.3e} of max |ref|, worst element "
           f"{worst:.3f} of its bar (2^-8 |ref| + 1e-5 max |ref|, one bf16 "
@@ -427,6 +472,8 @@ def phase_kernels(gen):
     errs[FLASH_RG_ROW] = _check_flash_bf16(fa, gen, B, S, N, H, window)
     errs[FLASH_GRANITE_ROW] = _check_flash_bf16(fa, gen, *FLASH_GRANITE,
                                                 None)
+    errs["flash_attention_fwd" + CELL_ROW] = _check_flash_bf16(
+        fa, gen, *FLASH_CELL, None, FLASH_CELL_SCALE)
 
     # fp32: every head dim, 8 included (the SMOKE configs with d_model 64
     # over 8 heads), ragged lengths, windows and softcaps
@@ -567,6 +614,8 @@ def check_ssd_bwd(gen, errs):
     from repro_torch.kernels.ssd import ops as sd
     errs["ssd_bwd"] = _check_ssd_bwd_bf16(sd, gen, SSD_MAIN, 0.1)
     _check_ssd_bwd_bf16(sd, gen, SSD_MAIN, 1.0)
+    errs["ssd_bwd" + CELL_ROW] = _check_ssd_bwd_bf16(sd, gen, SSD_CELL, 0.1)
+    _check_ssd_bwd_bf16(sd, gen, SSD_CELL, 1.0)
     for case in [(2, 1000, 64, 64, 1, 128, 256), (1, 520, 8, 64, 2, 128, 256),
                  (2, 300, 4, 64, 1, 16, 256), (2, 333, 4, 32, 1, 64, 256),
                  (1, 520, 4, 128, 2, 128, 256)]:
@@ -576,9 +625,11 @@ def check_ssd_bwd(gen, errs):
 def _check_ssd(gen, errs):
     from repro_torch.kernels.ssd import ops as sd
     errs["ssd_fwd"] = _check_ssd_bf16(sd, gen, SSD_MAIN, 0.1)
+    errs["ssd_fwd" + CELL_ROW] = _check_ssd_bf16(sd, gen, SSD_CELL, 0.1)
     # mamba2-like decays (cs falls by about a hundred over a 128-row
-    # piece), at the main shape and at a ragged S
+    # piece), at the main shapes and at a ragged S
     _check_ssd_bf16(sd, gen, SSD_MAIN, 1.0)
+    _check_ssd_bf16(sd, gen, SSD_CELL, 1.0)
     _check_ssd_bf16(sd, gen, (2, 1000, 64, 64, 1, 128, 256), 1.0)
     # bf16 head dims off the tensor maps (no multiple of 8, or over 128)
     # stay on the CUDA-core kernel: its bf16 instance at every state dim
@@ -733,15 +784,19 @@ def _expected_launches(cfg, n_leaves, train_rounds=2,
             "rglru_scan_bwd": layers("rglru", fwd=False)}
 
 
-def phase_main_path(arch, layers, batch, seq, may_stay):
-    """One model's main path at full width, depth cut to `layers`."""
+def phase_main_path(arch, layers, batch, seq, may_stay, cfg=None):
+    """One model's main path at full width, depth cut to `layers` (or at
+    `cfg`, a config of `layers` layers)."""
     from repro_torch import configs
     from repro_torch.benchmarks.table1 import LOCAL_STEPS
     from repro_torch.common.bridge import flatten_with_paths
     from repro_torch.comms.payload import quantized_leaf_bytes
     from repro_torch.fl.training import TorchTrainerHooks
 
-    cfg = dataclasses.replace(configs.get_config(arch), num_layers=layers)
+    if cfg is None:
+        cfg = dataclasses.replace(configs.get_config(arch), num_layers=layers)
+    _check(cfg.num_layers == layers, f"{cfg.name}: {cfg.num_layers} layers, "
+           f"want {layers}")
 
     def make(quantize):
         return TorchTrainerHooks(CLIENTS, cfg=cfg, local_steps=LOCAL_STEPS,
@@ -833,6 +888,24 @@ def phase_main_path(arch, layers, batch, seq, may_stay):
     _check_codec(gq, deltas[big], f"{cfg.name} {big} delta "
                  f"{tuple(deltas[big].shape)}")
     return launches, deltas
+
+
+def phase_cell_path():
+    """The benchmark cell's path (`CELL`): its port config as the harness
+    builds it, at its batch and sequence, through `phase_main_path`;
+    returns its launches, each at the shape of its `CELL_ROW` row. Any
+    leaf may stay put whose two steps lie under half its ulp: from the
+    port's own initialisation (loss ln(vocab), every sublayer's output
+    times 0.22) most Mamba2 leaves past the period's first layer take
+    steps of 0.09 down to 1e-8 of their bf16 ulps, and which of them
+    stay is no property of the kernels (on the H100, 83 of 164)."""
+    from repro_torch.models import lm
+    cfg, mix = cell_path()
+    may_stay = tuple(k for k, _ in lm.param_shapes(cfg))
+    launches, deltas = phase_main_path(cfg.name, cfg.num_layers, mix["batch"],
+                                       mix["seq"], may_stay, cfg=cfg)
+    del deltas
+    return launches
 
 
 def _gpu_name():
@@ -1349,10 +1422,13 @@ SMOKE_SHARE = {"recurrentgemma-2b": 1e-1}
 # granite-moe and dbrx (the router's softmax turns the embeddings'
 # rounding into gate changes) and 0.78 to 0.99 for glm4, command-r, qwen
 # and musicgen; at 2e-4, 0.19 to 0.39 (`tools/lm_fp32_spread.py --rounds
-# --lr ... --seq 64 --schedule one_round`)
+# --lr ... --seq 64 --schedule one_round`). granite-4.0-h-micro SMOKE
+# (20 layers under a 12x embedding) too: its fp32 round on the CPU lies
+# 0.41 of the bar from a run with float64 weights and activations at
+# 5e-3, 0.05 at 2e-4 (its int8 arm 0.38 and 0.39, the codec's flips)
 SMOKE_LR = {arch: 2e-4 for arch in (
     "glm4-9b", "command-r-35b", "qwen1.5-110b", "granite-moe-3b-a800m",
-    "dbrx-132b", "musicgen-medium")}
+    "dbrx-132b", "musicgen-medium", "granite-4.0-h-micro")}
 # llama-3.2-vision-90b SMOKE: its cross-attention layers need a `cond`
 # batch, which the hooks do not draw, so one fp32 loss and gradient on
 # the card is held to the CPU's: the loss to 1e-5 of itself, each leaf's
@@ -2583,9 +2659,11 @@ def _total_launches(path_launches):
             for name in _counters()}
 
 
-def _flash_row(fa, gen, name, B, S, N, H, window, launches, err):
-    """Flash at one main path's shape: the kernel, its plain version, its
-    bound and SDPA (the window as a boolean mask where there is one)."""
+def _flash_row(fa, gen, name, B, S, N, H, window, launches, err,
+               scale=None):
+    """Flash at one main path's shape and scale (None: 1/sqrt(H)): the
+    kernel, its plain version, its bound and SDPA (the window as a
+    boolean mask where there is one)."""
     from repro_torch.launch import roofline as R
     q, k, v = (_randn(gen, B, S, N, H, dtype=torch.bfloat16)
                for _ in range(3))
@@ -2593,7 +2671,7 @@ def _flash_row(fa, gen, name, B, S, N, H, window, launches, err):
     if window is None:
         def lib():
             return torch.nn.functional.scaled_dot_product_attention(
-                qt, kt, vt, is_causal=True)
+                qt, kt, vt, is_causal=True, scale=scale)
     else:
         pos = torch.arange(S, device="cuda")
         mask = ((pos[None, :] <= pos[:, None])
@@ -2601,17 +2679,17 @@ def _flash_row(fa, gen, name, B, S, N, H, window, launches, err):
 
         def lib():
             return torch.nn.functional.scaled_dot_product_attention(
-                qt, kt, vt, attn_mask=mask)
+                qt, kt, vt, attn_mask=mask, scale=scale)
     bound, by = _bound_ms(*R.attention_work(B, S, S, N, H, q.element_size(),
                                             window=window), torch.bfloat16)
     return dict(
         name=name, route="cuda", source=FLASH_SM90,
         replaces="src/repro/kernels/flash_attention/kernel.py:85",
         launches=launches, max_abs_err=err,
-        ms=_time_ms(lambda: fa.flash_attention_fwd(q, k, v, window=window)),
-        plain_ms=_time_ms(lambda: fa.flash_attention_plain(q, k, v,
-                                                           window=window),
-                          iters=3),
+        ms=_time_ms(lambda: fa.flash_attention_fwd(q, k, v, window=window,
+                                                   scale=scale)),
+        plain_ms=_time_ms(lambda: fa.flash_attention_plain(
+            q, k, v, window=window, scale=scale), iters=3),
         bound_ms=bound, bound_by=by, library_ms=_time_ms(lib))
 
 
@@ -2633,16 +2711,49 @@ def _time_flash_fp32_h8(fa, gen):
           f"bound {bound:.6f} ms ({by}), fp32 SDPA {lib:.4f} ms")
 
 
+def _ssd_rows(gen, shape, suffix, launches, errs):
+    """The ssd forward and backward at `shape` (b, s, h, p, g, n, chunk),
+    at the tensor-core kernels' pieces, each a row named with `suffix`."""
+    from repro_torch.kernels.ssd import ops as sd
+    from repro_torch.launch import roofline as R
+    b, s, h, p, g, n, chunk = shape
+    x, la, Bm, Cm = _ssd_inputs(gen, b, s, h, p, g, n, torch.bfloat16)
+    bound, by = _bound_ms(
+        *R.ssd_work(b, s, h, p, g, n, min(chunk, sd.SM90_PIECE),
+                    x.element_size()), torch.bfloat16)
+    rows = [dict(
+        name="ssd_fwd" + suffix, route="cuda", source=SSD_SM90,
+        replaces="src/repro/kernels/ssd/kernel.py:70",
+        launches=launches["ssd_fwd"], max_abs_err=errs["ssd_fwd" + suffix],
+        ms=_time_ms(lambda: sd.ssd_fwd(x, la, Bm, Cm, chunk=chunk)),
+        plain_ms=_time_ms(lambda: sd.ssd_plain(x, la, Bm, Cm, chunk=chunk),
+                          iters=3),
+        bound_ms=bound, bound_by=by, library_ms=None)]
+    gy = _randn(gen, b, s, h, p, dtype=torch.bfloat16)
+    bound, by = _bound_ms(
+        *R.ssd_bwd_work(b, s, h, p, g, n, min(chunk, sd.SM90_PIECE),
+                        x.element_size()), torch.bfloat16)
+    rows.append(dict(
+        name="ssd_bwd" + suffix, route="cuda", source=SSD_BWD,
+        replaces="none (jax.vjp of src/repro/models/ssm.py::ssd_reference)",
+        launches=launches["ssd_bwd"], max_abs_err=errs["ssd_bwd" + suffix],
+        ms=_time_ms(lambda: sd.ssd_bwd(x, la, Bm, Cm, gy, chunk=chunk)),
+        plain_ms=_time_ms(lambda: sd.ssd_bwd_plain(x, la, Bm, Cm, gy,
+                                                   chunk=chunk), iters=3),
+        bound_ms=bound, bound_by=by, library_ms=None))
+    return rows
+
+
 def phase_times(gen, path_launches, mesh_launches, forecast_launches, errs,
-                deltas):
+                deltas, cell_launches):
     """The kernels line: each kernel at its main path's shape. Launches
     are those of the paths that run it at that shape (phi3's flash: its
     main path, its mesh FL round, `mesh_launches`, and its learned-forecast
-    row, `forecast_launches`), or of all of them."""
+    row, `forecast_launches`), or of all of them; the `CELL_ROW` rows, at
+    the cell path's shapes, its own (`cell_launches`)."""
     from repro_torch.kernels.flash_attention import ops as fa
     from repro_torch.kernels.grad_quant import ops as gq
     from repro_torch.kernels.rglru import ops as rg
-    from repro_torch.kernels.ssd import ops as sd
     from repro_torch.launch import roofline as R
 
     launches = _total_launches({**path_launches, "mesh FL": mesh_launches,
@@ -2658,7 +2769,12 @@ def phase_times(gen, path_launches, mesh_launches, forecast_launches, errs,
                        ["flash_attention_fwd"], errs[FLASH_RG_ROW]),
             _flash_row(fa, gen, FLASH_GRANITE_ROW, *FLASH_GRANITE, None,
                        path_launches["granite-moe-3b-a800m"]
-                       ["flash_attention_fwd"], errs[FLASH_GRANITE_ROW])]
+                       ["flash_attention_fwd"], errs[FLASH_GRANITE_ROW]),
+            _flash_row(fa, gen, "flash_attention_fwd" + CELL_ROW,
+                       *FLASH_CELL, None,
+                       cell_launches["flash_attention_fwd"],
+                       errs["flash_attention_fwd" + CELL_ROW],
+                       scale=FLASH_CELL_SCALE)]
     _time_flash_fp32_h8(fa, gen)
 
     # the codec over one phi3 client's whole delta: every leaf once, as a
@@ -2705,32 +2821,9 @@ def phase_times(gen, path_launches, mesh_launches, forecast_launches, errs,
             bound_ms=bound, bound_by=by,
             library_ms=_time_ms(lib_fn, iters=5) if lib_fn else None))
 
-    # ssd at mamba2-1.3b's layer, at the tensor-core kernel's pieces
-    b, s, h, p, g, n, chunk = SSD_MAIN
-    x, la, Bm, Cm = _ssd_inputs(gen, b, s, h, p, g, n, torch.bfloat16)
-    bound, by = _bound_ms(
-        *R.ssd_work(b, s, h, p, g, n, min(chunk, sd.SM90_PIECE),
-                    x.element_size()), torch.bfloat16)
-    rows.append(dict(
-        name="ssd_fwd", route="cuda", source=SSD_SM90,
-        replaces="src/repro/kernels/ssd/kernel.py:70",
-        launches=launches["ssd_fwd"], max_abs_err=errs["ssd_fwd"],
-        ms=_time_ms(lambda: sd.ssd_fwd(x, la, Bm, Cm, chunk=chunk)),
-        plain_ms=_time_ms(lambda: sd.ssd_plain(x, la, Bm, Cm, chunk=chunk),
-                          iters=3),
-        bound_ms=bound, bound_by=by, library_ms=None))
-    gy = _randn(gen, b, s, h, p, dtype=torch.bfloat16)
-    bound, by = _bound_ms(
-        *R.ssd_bwd_work(b, s, h, p, g, n, min(chunk, sd.SM90_PIECE),
-                        x.element_size()), torch.bfloat16)
-    rows.append(dict(
-        name="ssd_bwd", route="cuda", source=SSD_BWD,
-        replaces="none (jax.vjp of src/repro/models/ssm.py::ssd_reference)",
-        launches=launches["ssd_bwd"], max_abs_err=errs["ssd_bwd"],
-        ms=_time_ms(lambda: sd.ssd_bwd(x, la, Bm, Cm, gy, chunk=chunk)),
-        plain_ms=_time_ms(lambda: sd.ssd_bwd_plain(x, la, Bm, Cm, gy,
-                                                   chunk=chunk), iters=3),
-        bound_ms=bound, bound_by=by, library_ms=None))
+    # ssd at mamba2-1.3b's layer and at the cell's
+    rows += _ssd_rows(gen, SSD_MAIN, "", launches, errs)
+    rows += _ssd_rows(gen, SSD_CELL, CELL_ROW, cell_launches, errs)
 
     # the RG-LRU scan at recurrentgemma-2b's layer, both modes and the
     # fused backward
@@ -2784,6 +2877,7 @@ def main():
         del d
     print(f"[main] launches over the four main paths "
           f"({', '.join(path_launches)}): {_total_launches(path_launches)}")
+    cell_launches = phase_cell_path()
     mesh_launches, dry_rec = phase_mesh_fl()
     t_phase = time.perf_counter()
     for arch in path_launches:
@@ -2800,13 +2894,13 @@ def main():
     forecast_launches, learned_res, learned_log = phase_forecast_report()
     phase_benchmarks(learned_res, learned_log, dry_rec)
     from repro_torch import configs
-    for arch in configs.ARCH_IDS:
+    for arch in configs.ARCH_IDS + list(configs.PORT_ONLY):
         if arch != VLM:
             phase_small_reference(arch)
     phase_vlm_reference()
     phase_paper_path()
     rows = phase_times(gen, path_launches, mesh_launches, forecast_launches,
-                       errs, deltas)
+                       errs, deltas, cell_launches)
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",

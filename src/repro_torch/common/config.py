@@ -4,7 +4,8 @@ Copies of `MoEConfig`, `SSMConfig`, `RGLRUConfig` and `ModelConfig` from
 the JAX package's `common/config.py`, kept here because the port imports
 nothing from that package. Field names and derived properties are the
 same, so a config reads alike in both; `activation_dtype` and
-`param_torch_dtype` give torch dtypes.
+`param_torch_dtype` give torch dtypes. `GraniteHybridConfig` (NoPE
+attention at a set scale, Granite's multipliers) is the port's own.
 
 The FL and cloud configs below them (`ClientProfile` through
 `FLRunConfig`, what the simulator, the scheduler and the runner read)
@@ -124,6 +125,17 @@ class ModelConfig:
     # not divide a 16-way axis: shard the expert FFN dim instead)
     sharding_overrides: Optional[Tuple[Tuple[str, Optional[Tuple[str, ...]]], ...]] = None
 
+    # Options the JAX package has no counterpart of, read by the model
+    # code as `cfg.<name>` whatever the config's class. Here they are
+    # plain class attributes (no annotation, so no dataclass field): the
+    # registry's configs keep the JAX package's field set and repr.
+    # `GraniteHybridConfig` declares them as fields.
+    position_embedding = "rope"    # "rope" | "none" (no positions, NoPE)
+    attention_scale = None         # scores' scale; None: 1/sqrt(head dim)
+    embedding_multiplier = 1.0     # the embedded tokens, times this
+    residual_multiplier = 1.0      # each mixer and MLP output, times this
+    logits_scaling = 1.0           # the logits, divided by this
+
     # ------------------------------------------------------------------
     def __post_init__(self):
         for k in self.pattern:
@@ -159,6 +171,36 @@ class ModelConfig:
         """True when no layer performs global attention (long_500k eligible)."""
         full = set(self.pattern + self.tail_pattern)
         return ATTN not in full and CROSS_ATTN not in full
+
+
+POSITION_EMBEDDINGS = ("rope", "none")
+
+
+@dataclasses.dataclass(frozen=True)
+class GraniteHybridConfig(ModelConfig):
+    """A `ModelConfig` with the options of IBM's `granitemoehybrid`
+    models (Granite 4.0-H) as fields: attention without positional
+    embedding at a set scale, and Granite's three multipliers. The
+    defaults compute what a `ModelConfig` computes."""
+    position_embedding: str = "rope"
+    attention_scale: Optional[float] = None
+    embedding_multiplier: float = 1.0
+    residual_multiplier: float = 1.0
+    logits_scaling: float = 1.0
+
+    def __post_init__(self):
+        super().__post_init__()
+        if self.position_embedding not in POSITION_EMBEDDINGS:
+            raise ValueError(f"position_embedding {self.position_embedding!r}"
+                             f" not in {POSITION_EMBEDDINGS}")
+        if self.attention_scale is not None and not self.attention_scale > 0:
+            raise ValueError(f"attention_scale must be > 0, got "
+                             f"{self.attention_scale}")
+        for name in ("embedding_multiplier", "residual_multiplier",
+                     "logits_scaling"):
+            if not getattr(self, name) > 0:
+                raise ValueError(f"{name} must be > 0, got "
+                                 f"{getattr(self, name)}")
 
 
 # ---------------------------------------------------------------------------

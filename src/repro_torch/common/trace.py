@@ -6,8 +6,8 @@ activities. There is no flag, option or environment variable. With no
 profiler recording, `span` costs one boolean read and returns one shared
 no-op context: no `record_function`, no CUDA event, no record.
 
-What each span covers (`fl/training.py` and the kernels' autograd
-Functions):
+What each span covers (`fl/training.py`, `models/lm.py` and the
+kernels' autograd Functions):
 
     fl.round          TorchTrainerHooks.aggregate, its whole body
     fl.data_draw      every slot's batches in _next_batches
@@ -15,6 +15,11 @@ Functions):
     lm.step           one batch of it: forward, backward, update
     lm.forward        the models.lm.loss_fn call
     lm.backward       the torch.autograd.grad call, recompute included
+    lm.mix.mamba2     one Mamba2 mixer (models/lm.py), in the forward
+                      and, under remat, again in the backward's
+                      recompute
+    lm.mix.attn       one attention mixer (self or cross), the same way
+    lm.mlp            one MLP (dense or MoE), the same way
     fl.sgd            the momentum and parameter writes of a step
     fl.loss_readback  the participant's losses copied to the host
     fl.fold           one participant's delta, codec round trip, weight

@@ -4,6 +4,9 @@ Each module exposes FULL (the published config) and SMOKE (a reduced
 same-family config that trains on the CPU in the tests). The ten
 architectures of the JAX package's registry, in its order, and the
 dry run's cells: every (arch, shape) pair after the rule-based skips.
+`get_config` also resolves the port's own architectures (`PORT_ONLY`),
+which the JAX package lacks: they are no `ARCH_IDS` and have no dry-run
+cell.
 """
 from __future__ import annotations
 
@@ -27,11 +30,17 @@ _MODULES = {
 
 ARCH_IDS: List[str] = list(_MODULES)
 
+PORT_ONLY = {
+    "granite-4.0-h-micro": "granite4_h_micro",
+}
+
 
 def get_config(arch: str, smoke: bool = False) -> ModelConfig:
-    if arch not in _MODULES:
-        raise KeyError(f"unknown arch {arch!r}; known: {ARCH_IDS}")
-    mod = importlib.import_module(f"repro_torch.configs.{_MODULES[arch]}")
+    module = _MODULES.get(arch) or PORT_ONLY.get(arch)
+    if module is None:
+        raise KeyError(f"unknown arch {arch!r}; known: "
+                       f"{ARCH_IDS + list(PORT_ONLY)}")
+    mod = importlib.import_module(f"repro_torch.configs.{module}")
     return mod.SMOKE if smoke else mod.FULL
 
 

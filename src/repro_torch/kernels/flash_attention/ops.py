@@ -48,11 +48,11 @@ def _unfold(x, B, N):
 
 
 def flash_attention_plain(q, k, v, *, causal=True, window=None,
-                          softcap=None):
+                          softcap=None, scale=None):
     """The plain version on (B, S|T, N, H) tensors."""
     B, _, N, _ = q.shape
     out = reference_attention(_fold(q), _fold(k), _fold(v), causal=causal,
-                              window=window, softcap=softcap)
+                              window=window, softcap=softcap, scale=scale)
     return _unfold(out, B, N)
 
 
@@ -76,7 +76,7 @@ def _entry(stem):
     return fn
 
 
-def _check_args(q, k, v, window, softcap):
+def _check_args(q, k, v, window, softcap, scale):
     """The kernels' argument checks; returns (B, S, T, N, H)."""
     B, S, N, H = q.shape
     T = k.shape[1]
@@ -98,10 +98,12 @@ def _check_args(q, k, v, window, softcap):
         raise ValueError(f"flash_attention: window must be >= 1, got {window}")
     if softcap is not None and softcap <= 0:
         raise ValueError(f"flash_attention: softcap must be > 0, got {softcap}")
+    if scale is not None and not scale > 0:
+        raise ValueError(f"flash_attention: scale must be > 0, got {scale}")
     return B, S, T, N, H
 
 
-def _launch(q, k, v, B, S, T, N, H, causal, window, softcap):
+def _launch(q, k, v, B, S, T, N, H, causal, window, softcap, scale):
     """Launch the kernel of q's dtype; returns o (B,S,N,H)."""
     if q.dtype == torch.bfloat16:
         # TMA reads the tensors as they lie, or a contiguous copy where
@@ -120,24 +122,27 @@ def _launch(q, k, v, B, S, T, N, H, causal, window, softcap):
     rc = _entry(stem)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
         B, N, S, T, H, *strides, *o.stride()[:3],
-        1.0 / math.sqrt(H), int(bool(causal)),
+        1.0 / math.sqrt(H) if scale is None else float(scale),
+        int(bool(causal)),
         0 if window is None else int(window),
         0.0 if softcap is None else float(softcap), _build.stream_ptr(q))
     _build.check(stem, rc)
     return o
 
 
-def flash_attention_fwd(q, k, v, *, causal=True, window=None, softcap=None):
-    """Forward only: q (B,S,N,H), k and v (B,T,N,H) -> (B,S,N,H)."""
+def flash_attention_fwd(q, k, v, *, causal=True, window=None, softcap=None,
+                        scale=None):
+    """Forward only: q (B,S,N,H), k and v (B,T,N,H) -> (B,S,N,H); the
+    scores are scaled by `scale` (None: 1/sqrt(H))."""
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal=causal, window=window,
-                                     softcap=softcap)
-    B, S, T, N, H = _check_args(q, k, v, window, softcap)
+                                     softcap=softcap, scale=scale)
+    B, S, T, N, H = _check_args(q, k, v, window, softcap, scale)
     if q.device.type == "meta":
         # the dry run: the output's shape and dtype, nothing launched
         o = torch.empty((B, S, N, H), dtype=q.dtype, device="meta")
     else:
-        o = _launch(q, k, v, B, S, T, N, H, causal, window, softcap)
+        o = _launch(q, k, v, B, S, T, N, H, causal, window, softcap, scale)
         flash_attention_fwd.launches += 1
     roofline.add_kernel_work("flash_attention_fwd", lambda: (
         roofline.attention_work(B, S, T, N, H, q.element_size(),
@@ -150,9 +155,10 @@ flash_attention_fwd.launches = 0
 
 class _FlashAttention(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, q, k, v, causal, window, softcap):
+    def forward(ctx, q, k, v, causal, window, softcap, scale):
         ctx.save_for_backward(q, k, v)
-        ctx.opts = dict(causal=causal, window=window, softcap=softcap)
+        ctx.opts = dict(causal=causal, window=window, softcap=softcap,
+                        scale=scale)
         return flash_attention_fwd(q, k, v, **ctx.opts)
 
     @staticmethod
@@ -162,9 +168,12 @@ class _FlashAttention(torch.autograd.Function):
             qkv = [x.detach().requires_grad_() for x in (q, k, v)]
             out = flash_attention_plain(*qkv, **ctx.opts)
             dq, dk, dv = torch.autograd.grad(out, qkv, g)
-        return dq, dk, dv, None, None, None
+        return dq, dk, dv, None, None, None, None
 
 
-def flash_attention(q, k, v, *, causal=True, window=None, softcap=None):
-    """q, k, v: (B, S|T, N, H) -> (B, S, N, H)."""
-    return _FlashAttention.apply(q, k, v, causal, window, softcap)
+def flash_attention(q, k, v, *, causal=True, window=None, softcap=None,
+                    scale=None):
+    """q, k, v: (B, S|T, N, H) -> (B, S, N, H); the scores are scaled by
+    `scale` (None: 1/sqrt(H)), in the forward and the backward's
+    recompute."""
+    return _FlashAttention.apply(q, k, v, causal, window, softcap, scale)

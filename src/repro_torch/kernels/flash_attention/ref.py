@@ -7,11 +7,14 @@ import math
 import torch
 
 
-def reference_attention(q, k, v, *, causal=True, window=None, softcap=None):
-    """q: (BN, S, H); k, v: (BN, T, H). Naive fp32 softmax attention."""
+def reference_attention(q, k, v, *, causal=True, window=None, softcap=None,
+                        scale=None):
+    """q: (BN, S, H); k, v: (BN, T, H). Naive fp32 softmax attention, the
+    scores times `scale` (None: divided by sqrt(H))."""
     BN, S, H = q.shape
     T = k.shape[1]
-    s = torch.einsum("bsh,bth->bst", q.float(), k.float()) / math.sqrt(H)
+    s = torch.einsum("bsh,bth->bst", q.float(), k.float())
+    s = s / math.sqrt(H) if scale is None else s * scale
     if softcap is not None:
         s = softcap * torch.tanh(s / softcap)
     qpos = torch.arange(S, device=q.device)[:, None]

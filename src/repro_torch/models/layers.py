@@ -146,7 +146,10 @@ def _cross_attn(q, k, v, softcap):
 
 def attention(p, x, cfg, *, kind, cond=None):
     """Self / sliding-window / cross attention. x: (B,S,D) -> (B,S,D);
-    a cross layer attends to `cond` (B,T,D), without RoPE or a mask."""
+    a cross layer attends to `cond` (B,T,D), without RoPE or a mask. A
+    self-attention layer rotates q and k by RoPE unless
+    `cfg.position_embedding` is "none", and scales its scores by
+    `cfg.attention_scale` where that is set (else 1/sqrt(h))."""
     cross = kind == C.CROSS_ATTN
     if cross and cond is None:
         raise ValueError("a cross-attention layer needs `cond` (B,T,D)")
@@ -162,7 +165,7 @@ def attention(p, x, cfg, *, kind, cond=None):
         k = k + p["bk"]
         v = v + p["bv"]
 
-    if not cross:
+    if not cross and cfg.position_embedding == "rope":
         positions = torch.arange(S, device=x.device)
         q = rope(q, positions, cfg.rope_theta)
         k = rope(k, positions, cfg.rope_theta)
@@ -176,7 +179,8 @@ def attention(p, x, cfg, *, kind, cond=None):
     else:
         window = cfg.window_size if kind == C.LOCAL_ATTN else None
         out = fa_ops.flash_attention(q, k, v, causal=True, window=window,
-                                     softcap=cfg.logit_softcap)
+                                     softcap=cfg.logit_softcap,
+                                     scale=cfg.attention_scale)
     return torch.einsum("bsnh,nhd->bsd", out, p["wo"])
 
 
@@ -189,7 +193,9 @@ def decode_attention(p, x, cfg, *, kind, cache, pos, cond_kv=None):
     write in place (the JAX package returns a new cache and its step
     donates the old one), and the cache comes back as given. A cross
     layer reads `cond_kv` (k, v: (B,T,K,H)) and leaves `cache` alone.
-    Scores and softmax are fp32 with -1e30 masking, grouped (B,K,G,H)."""
+    Scores and softmax are fp32 with -1e30 masking, grouped (B,K,G,H).
+    RoPE and the scores' scale of a self-attention layer follow `cfg`
+    as in `attention`."""
     B = x.shape[0]
     nq, nk, h = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
     g = nq // nk
@@ -209,8 +215,9 @@ def decode_attention(p, x, cfg, *, kind, cache, pos, cond_kv=None):
         if cfg.qkv_bias:
             knew = knew + p["bk"]
             vnew = vnew + p["bv"]
-        q = rope(q, pos[:, None], cfg.rope_theta)
-        knew = rope(knew, pos[:, None], cfg.rope_theta)
+        if cfg.position_embedding == "rope":
+            q = rope(q, pos[:, None], cfg.rope_theta)
+            knew = rope(knew, pos[:, None], cfg.rope_theta)
         k, v = cache["k"], cache["v"]
         L = k.shape[1]
         # a ring buffer of the window: W tokens, the current one included,
@@ -227,7 +234,9 @@ def decode_attention(p, x, cfg, *, kind, cache, pos, cond_kv=None):
 
     qf = q.reshape(B, nk, g, h).float()
     s = torch.einsum("bkgh,btkh->bkgt", qf, k.float())
-    s = _soft_cap(s / math.sqrt(h), cfg.logit_softcap)
+    scale = None if kind == C.CROSS_ATTN else cfg.attention_scale
+    s = s / math.sqrt(h) if scale is None else s * scale
+    s = _soft_cap(s, cfg.logit_softcap)
     s = torch.where(valid[:, None, None], s, -1e30)
     pr = torch.softmax(s, dim=-1)
     o = torch.einsum("bkgt,btkh->bkgh", pr, v.float())

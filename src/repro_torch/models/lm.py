@@ -9,6 +9,19 @@ recomputes each block in the backward
 with `nothing_saveable` does. The MoE layers' load-balancing losses are
 summed over the layers into `aux`.
 
+Granite's multipliers (`GraniteHybridConfig`; every other config leaves
+them at 1): the embedded tokens times `cfg.embedding_multiplier`, each
+mixer's and MLP's output times `cfg.residual_multiplier` before its
+residual add, the logits over `cfg.logits_scaling`. Each is applied
+only where it is not 1, so the other configs run the ops they ran
+without them. The forward and the decode step apply them alike.
+
+Spans (`common/trace.py`, recording only while a profiler records):
+`lm.mix.mamba2` around each Mamba2 mixer, `lm.mix.attn` around each
+attention mixer (self or cross) and `lm.mlp` around each MLP. Under remat they run
+again in the backward's recompute, inside `lm.backward`, so a span's
+walls cover the forward and the recompute.
+
 The decode path keeps one cache tree a model, with the JAX package's
 keys, shapes and dtypes (`f"{i:02d}_{kind}"` under `blocks`, with the
 stacked leading layer dim, and under `tail`): k and v rows of the
@@ -39,6 +52,7 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.common import config as C
 from repro_torch.common.bridge import flatten_with_paths, unflatten
 from repro_torch.common.device import require_device
+from repro_torch.common.trace import span
 from repro_torch.models import layers as L
 from repro_torch.models import ssm as S
 
@@ -117,22 +131,54 @@ def param_count(cfg) -> int:
 # ---------------------------------------------------------------------------
 # Forward (train / prefill).
 # ---------------------------------------------------------------------------
+def _residual(x, h, cfg):
+    """x plus a sublayer's output h, times the residual multiplier."""
+    if cfg.residual_multiplier != 1.0:
+        h = h * cfg.residual_multiplier
+    return x + h
+
+
+def _embed(params, cfg, tokens):
+    """Token ids gathered from the table (or frames as given), in the
+    activation dtype, times the embedding multiplier."""
+    x = params["embed"]["table"][tokens] if tokens.ndim == 2 else tokens
+    x = x.to(cfg.activation_dtype)
+    if cfg.embedding_multiplier != 1.0:
+        x = x * cfg.embedding_multiplier
+    return x
+
+
+def _logits(params, cfg, x):
+    """The final norm, the output head, and the logits scaling."""
+    x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
+    table = (params["embed"]["table"].T if cfg.tie_embeddings
+             else params["lm_head"]["table"])
+    logits = torch.einsum("bsd,dv->bsv", x, table)
+    if cfg.logits_scaling != 1.0:
+        logits = logits / cfg.logits_scaling
+    return logits
+
+
 def _apply_sublayer(kind, p, x, cfg, cond):
     h = L.rms_norm(x, p["norm1"], cfg.norm_eps)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if kind == C.MAMBA2:
-        x = x + S.mamba2_mix(p["mix"], h, cfg)
+        with span("lm.mix.mamba2"):
+            h = S.mamba2_mix(p["mix"], h, cfg)
     elif kind == C.RGLRU:
-        x = x + S.rglru_mix(p["mix"], h, cfg)
+        h = S.rglru_mix(p["mix"], h, cfg)
     else:
-        x = x + L.attention(p["mix"], h, cfg, kind=kind, cond=cond)
+        with span("lm.mix.attn"):
+            h = L.attention(p["mix"], h, cfg, kind=kind, cond=cond)
+    x = _residual(x, h, cfg)
     if _has_mlp(cfg):
         h = L.rms_norm(x, p["norm2"], cfg.norm_eps)
-        if cfg.moe:
-            h, aux = L.moe(p["mlp"], h, cfg)
-        else:
-            h = L.mlp(p["mlp"], h, cfg)
-        x = x + h
+        with span("lm.mlp"):
+            if cfg.moe:
+                h, aux = L.moe(p["mlp"], h, cfg)
+            else:
+                h = L.mlp(p["mlp"], h, cfg)
+        x = _residual(x, h, cfg)
     return x, aux
 
 
@@ -154,11 +200,7 @@ def forward(params, cfg, tokens, cond=None):
     """tokens: (B,S) integer ids, or (B,S,D) pre-embedded frames (audio);
     cond: (B,T,D) conditioning tokens of the cross-attention layers (vlm).
     Returns (logits (B,S,V), aux_loss scalar)."""
-    if tokens.ndim == 2:
-        x = params["embed"]["table"][tokens]
-    else:
-        x = tokens
-    x = x.to(cfg.activation_dtype)
+    x = _embed(params, cfg, tokens)
     if cond is not None:
         cond = cond.to(cfg.activation_dtype)
 
@@ -178,12 +220,7 @@ def forward(params, cfg, tokens, cond=None):
     if cfg.tail_pattern:
         x, a = _apply_block(cfg.tail_pattern, params["tail"], x, cfg, cond)
         aux = aux + a
-
-    x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
-    table = (params["embed"]["table"].T if cfg.tie_embeddings
-             else params["lm_head"]["table"])
-    logits = torch.einsum("bsd,dv->bsv", x, table)
-    return logits, aux
+    return _logits(params, cfg, x), aux
 
 
 def loss_fn(params, cfg, batch, aux_weight: float = 0.01):
@@ -293,14 +330,14 @@ def _apply_sublayer_decode(kind, p, x, cfg, cache, pos):
         h, new = S.mamba2_decode(p["mix"], h, cfg, cache)
     elif kind == C.RGLRU:
         h, new = S.rglru_decode(p["mix"], h, cfg, cache)
-    x = x + h
+    x = _residual(x, h, cfg)
     if _has_mlp(cfg):
         h = L.rms_norm(x, p["norm2"], cfg.norm_eps)
         if cfg.moe:
             h, _ = L.moe(p["mlp"], h, cfg)
         else:
             h = L.mlp(p["mlp"], h, cfg)
-        x = x + h
+        x = _residual(x, h, cfg)
     return x, new
 
 
@@ -322,11 +359,7 @@ def decode_step(params, cfg, tokens, pos, cache):
     """tokens: (B,1) integer ids (or (B,1,D) frames); pos: (B,) integer.
 
     Returns (logits (B,1,V), cache), `cache` updated in place."""
-    if tokens.ndim == 2:
-        x = params["embed"]["table"][tokens]
-    else:
-        x = tokens
-    x = x.to(cfg.activation_dtype)
+    x = _embed(params, cfg, tokens)
 
     for i in range(cfg.n_super):
         x = _apply_block_decode(cfg.pattern,
@@ -335,8 +368,4 @@ def decode_step(params, cfg, tokens, pos, cache):
     if cfg.tail_pattern:
         x = _apply_block_decode(cfg.tail_pattern, params["tail"], x, cfg,
                                 cache["tail"], pos)
-
-    x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
-    table = (params["embed"]["table"].T if cfg.tie_embeddings
-             else params["lm_head"]["table"])
-    return torch.einsum("bsd,dv->bsv", x, table), cache
+    return _logits(params, cfg, x), cache

@@ -146,6 +146,51 @@ def test_flash_gradients_flow_through_the_recompute(gen):
         torch.testing.assert_close(a, b, atol=3e-4, rtol=3e-4)
 
 
+# granite-4.0-h-micro's attention: head dim 64, 32 query heads over 8 kv
+# heads (expanded, as the attention layer passes them), no RoPE, the
+# scores times 1/64 (its attention_multiplier, where every other config
+# takes 1/sqrt(64)); bf16 within one bf16 rounding of the plain version
+# in fp32 at that scale, fp32 at the reference's 2e-5
+GRANITE_SCALE = 1.0 / 64
+
+
+def _granite_qkv(gen, S, dtype):
+    q = _randn(gen, 1, S, 32, 64, dtype=dtype)
+    k, v = (_randn(gen, 1, S, 8, 64, dtype=dtype).repeat_interleave(4, dim=2)
+            for _ in range(2))
+    return q, k, v
+
+
+@pytest.mark.parametrize("S", [1024, 333])
+def test_flash_bf16_at_granites_scale(gen, S):
+    q, k, v = _granite_qkv(gen, S, torch.bfloat16)
+    before = fa.flash_attention_fwd.launches
+    out = fa.flash_attention_fwd(q, k, v, scale=GRANITE_SCALE)
+    assert fa.flash_attention_fwd.launches == before + 1
+    _assert_rounds_once(out, q, k, v, scale=GRANITE_SCALE)
+    # the scale reaches the kernel: at 1/sqrt(64) it computes otherwise
+    other = fa.flash_attention_fwd(q, k, v)
+    assert (other.float() - out.float()).abs().max().item() > 1e-2
+
+
+def test_flash_fp32_at_granites_scale(gen):
+    q, k, v = _granite_qkv(gen, 333, torch.float32)
+    out = fa.flash_attention_fwd(q, k, v, scale=GRANITE_SCALE)
+    want = fa.flash_attention_plain(q, k, v, scale=GRANITE_SCALE)
+    torch.testing.assert_close(out, want, atol=2e-5, rtol=2e-5)
+
+
+def test_flash_gradients_at_a_set_scale(gen):
+    q, k, v = (_randn(gen, 1, 128, 2, 64).requires_grad_() for _ in range(3))
+    g = _randn(gen, 1, 128, 2, 64)
+    got = torch.autograd.grad(
+        fa.flash_attention(q, k, v, scale=GRANITE_SCALE), (q, k, v), g)
+    want = torch.autograd.grad(
+        fa.flash_attention_plain(q, k, v, scale=GRANITE_SCALE), (q, k, v), g)
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, atol=3e-4, rtol=3e-4)
+
+
 def test_flash_rejects_an_unsupported_head_dim(gen):
     q = _randn(gen, 1, 64, 1, 48)
     with pytest.raises(ValueError, match="head dim"):

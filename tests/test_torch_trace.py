@@ -3,6 +3,7 @@ without a profiler (no `record_function`, no record, no CUDA event),
 and under one a tree at each layer boundary of `TorchTrainerHooks`'
 round, a span for every draw, step, update and fold, whose records keep
 no object that the garbage collector tracks."""
+import dataclasses
 import gc
 import json
 import threading
@@ -13,8 +14,11 @@ torch = pytest.importorskip("torch")
 
 from torch.profiler import ProfilerActivity, profile
 
+from repro_torch import configs
 from repro_torch.common import trace
+from repro_torch.common.bridge import flatten_with_paths
 from repro_torch.fl.training import TorchTrainerHooks
+from repro_torch.models import lm
 
 CLIENTS = ("c0", "c1")
 STEPS, BATCH, SEQ = 2, 2, 8
@@ -68,6 +72,25 @@ def traced(request, tmp_path_factory):
                 events=events)
 
 
+def _count_calls(monkeypatch):
+    """Count `record_function` contexts and CUDA events made from here
+    on."""
+    calls = {"record_function": 0, "event": 0}
+    real_rf, real_event = torch.profiler.record_function, torch.cuda.Event
+
+    def counting_rf(*a, **k):
+        calls["record_function"] += 1
+        return real_rf(*a, **k)
+
+    def counting_event(*a, **k):
+        calls["event"] += 1
+        return real_event(*a, **k)
+
+    monkeypatch.setattr(torch.profiler, "record_function", counting_rf)
+    monkeypatch.setattr(torch.cuda, "Event", counting_event)
+    return calls
+
+
 @pytest.mark.parametrize("model", ["phi3-mini-3.8b", "mamba2-1.3b"])
 def test_off_without_a_profiler(model, monkeypatch):
     calls = {"record_function": 0, "event": 0}
@@ -88,6 +111,51 @@ def test_off_without_a_profiler(model, monkeypatch):
     assert trace.roots() == []
     assert calls == {"record_function": 0, "event": 0}
     assert trace.span("fl.round", round=0) is trace.span("lm.step")
+
+
+@pytest.mark.parametrize("model", ["phi3-mini-3.8b", "mamba2-1.3b",
+                                   "granite-4.0-h-micro"])
+def test_an_untraced_step_records_nothing(model, monkeypatch):
+    """A step's forward and backward under remat, the layer spans of
+    `models/lm.py` and their recompute included, makes no CUDA event and
+    no record without a profiler."""
+    cfg = configs.get_config(model, smoke=True)
+    # one block of granite's period: every layer kind once
+    cfg = dataclasses.replace(cfg, remat=True,
+                              num_layers=max(len(cfg.pattern), 2))
+    params = lm.init_params(cfg, seed=0, device="cpu")
+    leaves = [t.requires_grad_(True) for _, t in flatten_with_paths(params)]
+    tokens = torch.randint(0, cfg.vocab_size, (BATCH, SEQ),
+                           generator=torch.Generator().manual_seed(0))
+    calls = _count_calls(monkeypatch)
+    loss = lm.loss_fn(params, cfg, {"tokens": tokens, "labels": tokens})
+    torch.autograd.grad(loss, leaves)
+    assert calls == {"record_function": 0, "event": 0}
+    assert trace.roots() == []
+
+
+def test_layer_spans_run_again_in_the_recompute():
+    """Under remat the layer spans of `models/lm.py` run in the forward
+    and again in the backward's recompute: one a mixer or MLP each
+    time."""
+    cfg = dataclasses.replace(
+        configs.get_config("granite-4.0-h-micro", smoke=True), remat=True,
+        num_layers=10)
+    params = lm.init_params(cfg, seed=0, device="cpu")
+    leaves = [t.requires_grad_(True) for _, t in flatten_with_paths(params)]
+    tokens = torch.zeros((BATCH, SEQ), dtype=torch.long)
+    with profile(activities=[ProfilerActivity.CPU]):
+        with trace.span("lm.forward"):
+            loss = lm.loss_fn(params, cfg, {"tokens": tokens,
+                                            "labels": tokens})
+        with trace.span("lm.backward"):
+            torch.autograd.grad(loss, leaves)
+    n_attn = cfg.n_super * cfg.pattern.count("attn")
+    want = {"lm.mix.mamba2": cfg.num_layers - n_attn, "lm.mix.attn": n_attn,
+            "lm.mlp": cfg.num_layers}
+    for root in trace.roots():
+        names = [s.name for s in root.children]
+        assert {n: names.count(n) for n in want} == want, root.name
 
 
 def test_round_tree(traced):
@@ -189,6 +257,40 @@ def test_records_keep_no_tracked_object():
         grown = len(gc.get_objects()) - before
     assert grown < 20, grown
     assert len(trace.roots("fl.round")) == 1010
+
+
+def test_layer_spans_keep_no_tracked_object(monkeypatch):
+    """The spans of `models/lm.py` (`lm.mix.mamba2`, `lm.mix.attn`,
+    `lm.mlp`) at their own sites: 2,000 of them leave under 20 objects
+    that the garbage collector tracks. The layers inside them pass their
+    input through, so the spans are all that runs."""
+    for mod, name in ((lm.S, "mamba2_mix"), (lm.L, "attention"),
+                      (lm.L, "mlp")):
+        monkeypatch.setattr(mod, name, lambda p, h, cfg, **kw: h)
+    cfg = configs.get_config("granite-4.0-h-micro", smoke=True)
+    blk = lm._layer_slice(lm.init_params(cfg, seed=0, device="cpu")
+                          ["blocks"], 0)
+    x = torch.randn(1, SEQ, cfg.d_model)
+    sublayers = [(k, blk[f"{i:02d}_{k}"]) for i, k in enumerate(cfg.pattern)
+                 if i in (0, cfg.pattern.index("attn"))]
+
+    def spans(n):
+        with torch.no_grad():
+            for _ in range(n):
+                for kind, p in sublayers:
+                    lm._apply_sublayer(kind, p, x, cfg, None)
+
+    with profile(activities=[ProfilerActivity.CPU]):
+        spans(5)
+        gc.collect()
+        before = len(gc.get_objects())
+        spans(500)
+        gc.collect()
+        grown = len(gc.get_objects()) - before
+    assert grown < 20, grown
+    names = [s.name for s in trace.roots()]
+    assert {n: names.count(n) for n in set(names)} == {
+        "lm.mix.mamba2": 505, "lm.mix.attn": 505, "lm.mlp": 1010}
 
 
 def test_out_of_order_close_and_open_reads():

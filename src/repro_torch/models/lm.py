@@ -2,12 +2,16 @@
 `cross_attn`, `mamba2`, `rglru`), with a dense or an MoE MLP.
 
 Counterpart of the JAX package's `models/lm.py`: the same parameter
-tree, with the stacked leading layer dim of `blocks/*`, which the forward
-indexes in a Python loop where the JAX package scans. `cfg.remat`
-recomputes each block in the backward
+tree, with the stacked leading layer dim of `blocks/*`. The forward
+unbinds each stacked leaf once, before its Python loop over the layers
+(where the JAX package scans), and hands each layer its slices, so the
+backward stacks a leaf's per-layer gradients in one pass; indexing the
+leaf once a layer would write and add a whole-leaf gradient for every
+layer. `cfg.remat` recomputes each block in the backward
 (`torch.utils.checkpoint.checkpoint`, non-reentrant), as `jax.checkpoint`
-with `nothing_saveable` does. The MoE layers' load-balancing losses are
-summed over the layers into `aux`.
+with `nothing_saveable` does; the recompute reuses the unbound slices.
+The MoE layers' load-balancing losses are summed over the layers into
+`aux`.
 
 Granite's multipliers (`GraniteHybridConfig`; every other config leaves
 them at 1): the embedded tokens times `cfg.embedding_multiplier`, each
@@ -196,6 +200,15 @@ def _layer_slice(tree, i):
     return tree[i]
 
 
+def _unbind_layers(tree, n):
+    """The `n` per-layer trees of a stacked tree, each leaf unbound once
+    along its leading layer dim."""
+    if isinstance(tree, dict):
+        per_key = {k: _unbind_layers(v, n) for k, v in tree.items()}
+        return [{k: v[i] for k, v in per_key.items()} for i in range(n)]
+    return torch.unbind(tree, 0)
+
+
 def forward(params, cfg, tokens, cond=None):
     """tokens: (B,S) integer ids, or (B,S,D) pre-embedded frames (audio);
     cond: (B,T,D) conditioning tokens of the cross-attention layers (vlm).
@@ -206,16 +219,12 @@ def forward(params, cfg, tokens, cond=None):
 
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if cfg.n_super > 0:
-        def block(h, i):
-            return _apply_block(cfg.pattern,
-                                _layer_slice(params["blocks"], i), h, cfg,
-                                cond)
-
-        for i in range(cfg.n_super):
+        for p_blk in _unbind_layers(params["blocks"], cfg.n_super):
             if cfg.remat:
-                x, a = checkpoint(block, x, i, use_reentrant=False)
+                x, a = checkpoint(_apply_block, cfg.pattern, p_blk, x, cfg,
+                                  cond, use_reentrant=False)
             else:
-                x, a = block(x, i)
+                x, a = _apply_block(cfg.pattern, p_blk, x, cfg, cond)
             aux = aux + a
     if cfg.tail_pattern:
         x, a = _apply_block(cfg.tail_pattern, params["tail"], x, cfg, cond)

@@ -353,3 +353,103 @@ class TestSSMLM:
         for k, g in zip(leaves, grads):
             err = np.max(np.abs(g.numpy() - jg[k]))
             assert err <= GRAD_TOL[arch] * np.max(np.abs(jg[k])), (k, err)
+
+
+# ---------------------------------------------------------------------------
+# The stacked `blocks/*` leaves: unbound once a forward.
+# ---------------------------------------------------------------------------
+# (arch, overrides): every case has n_super >= 2; the last adds a tail
+STACKED_CASES = {
+    "phi3": ("phi3-mini-3.8b", {}),
+    "mamba2": ("mamba2-1.3b", {}),
+    "granite-h": ("granite-4.0-h-micro", {}),
+    "phi3-tail": ("phi3-mini-3.8b", dict(pattern=("local_attn", "attn"),
+                                         window_size=5, num_layers=5)),
+}
+
+
+def _indexed_loss(params, cfg, batch):
+    """`lm.loss_fn` with every stacked leaf indexed once a layer
+    (`tree[i]` inside the block), the forward's former way."""
+    x = lm._embed(params, cfg, batch["tokens"])
+    aux = torch.zeros((), dtype=torch.float32)
+
+    def block(h, i):
+        return lm._apply_block(cfg.pattern,
+                               lm._layer_slice(params["blocks"], i), h, cfg,
+                               None)
+
+    for i in range(cfg.n_super):
+        if cfg.remat:
+            x, a = torch.utils.checkpoint.checkpoint(block, x, i,
+                                                     use_reentrant=False)
+        else:
+            x, a = block(x, i)
+        aux = aux + a
+    if cfg.tail_pattern:
+        x, a = lm._apply_block(cfg.tail_pattern, params["tail"], x, cfg, None)
+        aux = aux + a
+    logits = lm._logits(params, cfg, x).float()
+    gold = torch.gather(logits, -1, batch["labels"][..., None])[..., 0]
+    return torch.mean(torch.logsumexp(logits, dim=-1) - gold) + 0.01 * aux
+
+
+def _stacked_case(case, remat, dtype="float32"):
+    arch, kw = STACKED_CASES[case]
+    cfg = dataclasses.replace(configs.get_config(arch, smoke=True), **kw,
+                              remat=remat, dtype=dtype, param_dtype=dtype)
+    assert cfg.n_super >= 2
+    params = lm.init_params(cfg, seed=3, device="cpu")
+    leaves = dict(bridge.flatten_with_paths(params))
+    for t in leaves.values():
+        t.requires_grad_(True)
+    rng = np.random.RandomState(3)
+    toks = rng.randint(0, cfg.vocab_size, size=(2, 17))
+    batch = {"tokens": torch.from_numpy(toks[:, :-1]).long(),
+             "labels": torch.from_numpy(toks[:, 1:]).long()}
+    return cfg, params, leaves, batch
+
+
+class TestStackedLeaves:
+    @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+    @pytest.mark.parametrize("remat", [False, True])
+    @pytest.mark.parametrize("case", list(STACKED_CASES))
+    def test_grads_equal_per_layer_indexing(self, case, remat, dtype):
+        """Each slice's gradient comes from its own layer alone, so the
+        unbound leaves' gradients are the indexed ones bit for bit (up to
+        the sign of a zero, which `torch.equal` does not tell)."""
+        cfg, params, leaves, batch = _stacked_case(case, remat, dtype)
+        loss = lm.loss_fn(params, cfg, batch)
+        grads = torch.autograd.grad(loss, list(leaves.values()))
+        want_loss = _indexed_loss(params, cfg, batch)
+        want = torch.autograd.grad(want_loss, list(leaves.values()))
+        assert torch.equal(loss, want_loss)
+        for k, g, w in zip(leaves, grads, want):
+            assert g.dtype == w.dtype and torch.equal(g, w), k
+
+    @pytest.mark.parametrize("remat", [False, True])
+    def test_one_unbind_per_stacked_leaf(self, remat):
+        """The backward graph holds one `UnbindBackward0` per `blocks/*`
+        leaf and no `SelectBackward0` straight off one."""
+        cfg, params, leaves, batch = _stacked_case("granite-h", remat)
+        loss = lm.loss_fn(params, cfg, batch)
+        stacked = {id(t): k for k, t in leaves.items()
+                   if k.startswith("blocks/")}
+        unbinds = {k: 0 for k in stacked.values()}
+        seen, todo = set(), [loss.grad_fn]
+        while todo:
+            node = todo.pop()
+            if node is None or node in seen:
+                continue
+            seen.add(node)
+            nexts = [f for f, _ in node.next_functions]
+            todo.extend(nexts)
+            inputs = [stacked.get(id(getattr(f, "variable", None)))
+                      for f in nexts]
+            inputs = [k for k in inputs if k is not None]
+            name = type(node).__name__
+            assert not (name == "SelectBackward0" and inputs), inputs
+            if name == "UnbindBackward0":
+                for k in inputs:
+                    unbinds[k] += 1
+        assert unbinds and set(unbinds.values()) == {1}, unbinds
